@@ -10,19 +10,37 @@ non-zero:
 1. device   - require CUDA; print the card's name and nvidia-smi's
               name and power limit.
 2. build    - build the kernels from genomealignmenttools_tpu_torch/csrc
-              with nvcc (sm_90a) and print the build seconds and ptxas
-              counts.
+              with nvcc (sm_90a, one nvcc per source, in parallel) and
+              print the build seconds and ptxas counts.
 3. kernel   - K1 against its plain PyTorch version on the card, exact, on
               seeded random genomes with N runs, both strands, chunk lengths
               0, 1, 255 and 256 and chunks that end at the genome's end.
-4. fixtures - scoreChain, chainNet -rescore and chainCleaner through the
+4. kernel K2 - K2 against its plain version on the card, exact, and K2 +
+              finish against the staged int64 combine, on the adversarial
+              chain workloads of tests/combine_cases.py: the carry's edge
+              cases (a chain over more than three of K2's tiles, single-chunk
+              chains, a chain ending on a tile's last chunk, pad chunks), an
+              unpadded input, and 7, 800 and 200,000 random chains.
+5. fixtures - scoreChain, chainNet -rescore and chainCleaner through the
               port's CLI on the card, byte-compared with tests/golden; each
-              must launch K1.
-5. chr1     - the bench workload (utils/bench_workload.py, 256 Mb per genome,
+              must launch K1.  Then the same in pair mode (GAT_RESCORE=pair
+              GAT_COMBINE=device): chainNet -rescore and chainCleaner must
+              launch K2.
+6. chr1     - the bench workload (utils/bench_workload.py, 256 Mb per genome,
               384 chains, ~367 Mb aligned) through the port's scoreChain,
               byte-compared with a host-native run of the same file; cold and
               warm seconds, Mb aligned per second, K1 launches, and K1's time
               against the plain version's at the main path's shapes.
+7. resident - the same chains through TorchPairChainScorer (bench.py's
+              resident protocol): every chain's (global, local) equal to the
+              host-native scores; pack, upload, single-pass and sustained
+              per-pass times, bytes a pass moves against the card's published
+              HBM bandwidth, K2's time against the plain version's at these
+              shapes, peak device memory.
+8. cleaner  - chainNet -rescore on the chainCleaner bench workload
+              (build_cleaner_workload, as bench.py builds it) through the
+              port in window mode and in pair mode with the device combine,
+              each byte-compared with a host-native run; wall seconds of all.
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {"platform": "gpu", ...}}.  Imports nothing of jax.
@@ -30,6 +48,7 @@ is {"ok": true, "device": {"platform": "gpu", ...}}.  Imports nothing of jax.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -41,6 +60,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(REPO, "tests", "fixtures")
 GOLD = os.path.join(REPO, "tests", "golden")
 KERNEL = "rescore_chunks"
+K2 = "pair_combine"
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM published HBM3 bandwidth
+PAIR_ENV = {"GAT_RESCORE": "pair", "GAT_COMBINE": "device"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -166,20 +188,97 @@ def phase_kernel(dev) -> int:
     return worst
 
 
-def run_cli(args: list[str]) -> dict:
-    """One port CLI run on the card; returns the launch counts of it."""
+def k2_against_plain(s, bias, flags, start_idx, end_idx) -> int:
+    """K2 == its plain version and K2 + finish == the staged int64 combine,
+    on one set of card tensors; returns the max abs difference."""
+    import torch
+
+    from genomealignmenttools_tpu_torch.ops import pair_combine as pc
+    from genomealignmenttools_tpu_torch.ops.pair_rescore import \
+        pair_chain_scores_plain
+    c, w = pc.pair_combine_scan(s, bias, flags)
+    c_plain, w_plain = pc.pair_combine_scan_plain(s, bias, flags)
+    fin = pc.pair_combine_finish(c, w, end_idx).to(torch.int64)
+    staged = pair_chain_scores_plain(s, bias, flags, start_idx, end_idx)
+    torch.cuda.synchronize()
+    return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+               for a, b in ((c, c_plain), (w, w_plain), (fin, staged)))
+
+
+def phase_kernel_k2(dev) -> int:
+    """Exact K2 == plain (and == staged) on the card; returns the max abs
+    difference."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from combine_cases import combine_case, edge_chains, random_chains
+    from genomealignmenttools_tpu_torch.ops.pair_combine import TILE
+
+    rng = np.random.default_rng(20261017)
+    cases = [("edge cases", edge_chains(TILE), TILE),
+             ("7 chains, unpadded", random_chains(rng, 7), 1)]
+    cases += [(f"{n} chains", random_chains(rng, n), TILE)
+              for n in (7, 800, 200_000)]
+    worst = 0
+    for label, (nb, nc), pad_to in cases:
+        s, bias, flags, start_idx, end_idx, m = combine_case(rng, nb, nc,
+                                                             pad_to)
+        lengths = end_idx - start_idx + 1
+        if label == "edge cases":
+            check(lengths.max() > 3 * TILE and (lengths == 1).any()
+                  and (end_idx % TILE == TILE - 1).any() and s.shape[0] > m,
+                  "the edge-case workload lost one of its cases")
+        card = [torch.from_numpy(a).to(dev)
+                for a in (s, bias, flags, start_idx, end_idx)]
+        diff = k2_against_plain(*card)
+        worst = max(worst, diff)
+        check(diff == 0, f"K2 != plain or staged on {label} (max {diff})")
+        print(f"[kernel K2] {label}: {len(end_idx)} chains, {m} chunks + "
+              f"{s.shape[0] - m} pad, {-(-s.shape[0] // TILE)} tiles of "
+              f"{TILE}; longest chain {int(lengths.max())} chunks, "
+              f"{int((lengths == 1).sum())} single-chunk chains, "
+              f"{int((end_idx % TILE == TILE - 1).sum())} ending on a "
+              f"tile's last chunk: kernel == plain and finish == staged "
+              f"exactly")
+        del card
+    return worst
+
+
+@contextlib.contextmanager
+def environ(env: dict):
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_cli(args: list[str], env: dict | None = None) -> dict:
+    """One port CLI run on the card, with `env` set for it; returns its
+    launch counts (set to 0 just before, read just after)."""
     import torch
 
     from genomealignmenttools_tpu_torch.cli.main import main
     from genomealignmenttools_tpu_torch.device import LAUNCHES, perf_reset
-    perf_reset()
-    rc = main(args + ["-device=cuda"])
-    torch.cuda.synchronize()
+    with environ(env or {}):
+        perf_reset()
+        rc = main(args + ["-device=cuda"])
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
     check(rc == 0, f"CLI {args[0]} exited {rc}")
-    return dict(LAUNCHES)
+    return counts
 
 
 def phase_fixtures(tmp: str) -> None:
+    """The three tools on the fixtures in window mode (K1), then in pair mode
+    with the device combine (K2; scoreChain takes score_table and the native
+    combine there, as in the reference, and launches neither kernel)."""
     f = lambda n: os.path.join(FIX, n)  # noqa: E731
     g = lambda n: os.path.join(GOLD, n)  # noqa: E731
     o = lambda n: os.path.join(tmp, n)  # noqa: E731
@@ -204,26 +303,46 @@ def phase_fixtures(tmp: str) -> None:
          [(o("clean.chain"), g("chainCleaner.out.chain")),
           (o("clean.bed"), g("chainCleaner.removedSuspects.bed"))]),
     ]
-    for label, args, pairs in runs:
-        t0 = time.monotonic()
-        launches = run_cli(args)[KERNEL]
-        secs = time.monotonic() - t0
-        check(launches > 0, f"{label} never launched {KERNEL}")
-        for got, want in pairs:
-            check(same_bytes(got, want), f"{label}: {got} != {want}")
-        print(f"[fixtures] {label}: byte-identical to "
-              f"{', '.join(os.path.basename(w) for _, w in pairs)}; "
-              f"{KERNEL} launches {launches}; {secs:.3f} s")
+    for mode, env in (("window", None), ("pair", PAIR_ENV)):
+        for label, args, pairs in runs:
+            t0 = time.monotonic()
+            counts = run_cli(args, env)
+            secs = time.monotonic() - t0
+            if env is None:
+                check(counts[KERNEL] > 0, f"{label} never launched {KERNEL}")
+            elif label != "scoreChain":
+                check(counts[K2] > 0, f"{label} (pair) never launched {K2}")
+            for got, want in pairs:
+                check(same_bytes(got, want),
+                      f"{label} ({mode}): {got} != {want}")
+            print(f"[fixtures] {label} ({mode} mode): byte-identical to "
+                  f"{', '.join(os.path.basename(w) for _, w in pairs)}; "
+                  + ", ".join(f"{k} launches {v}" for k, v in counts.items())
+                  + f"; {secs:.3f} s")
 
 
 class HostNativeScorer:
-    """The reference's all-host scoring of a whole table
-    (DeviceChainScorer._score_table_native, ops/rescore.py:521-534) without
-    the class that imports jax: gat_subset_scores over full-cover jobs."""
+    """The reference's all-host scoring (DeviceChainScorer in `hostnative`
+    mode, ops/rescore.py:319-324, 521-534) without the class that imports
+    jax: score_table is gat_subset_scores over full-cover jobs, and a
+    host-native `_dev` sends chainNet -rescore to its fused native sub-chain
+    scoring (chain_net.py:1006-1043).  score_chains and global_score, the
+    engine's other routes, score on the host with engines.scoring."""
 
     def __init__(self, scheme, gap_calc, t_genome, q_genome):
+        import types
+
+        from genomealignmenttools_tpu.engines.scoring import ChainScorer
         self.scheme, self.gap_calc = scheme, gap_calc
         self.t_genome, self.q_genome = t_genome, q_genome
+        self._dev = types.SimpleNamespace(host_native=True)
+        self._host = ChainScorer(scheme, gap_calc, t_genome, q_genome)
+
+    def global_score(self, chain) -> float:
+        return self._host.global_score(chain)
+
+    def score_chains(self, chains: list) -> list:
+        return [self._host.global_and_local(c) for c in chains]
 
     def score_table(self, table):
         import numpy as np
@@ -273,7 +392,9 @@ def main_path_chunks(meta: dict, dev):
     return jobs
 
 
-def phase_chr1(tmp: str, dev) -> tuple[dict, int]:
+def phase_chr1(tmp: str, dev, t_size: int = 256_000_000,
+               n_chains: int = 384) -> tuple[dict, dict]:
+    """Returns K1's kernels-line entry and the workload's paths."""
     import torch
 
     from genomealignmenttools_tpu.engines.score_chain import score_chain_file
@@ -285,11 +406,12 @@ def phase_chr1(tmp: str, dev) -> tuple[dict, int]:
     from genomealignmenttools_tpu_torch.ops import window_rescore as wr
 
     t0 = time.monotonic()
-    meta = build_workload(os.path.join(tmp, "chr1"), t_size=256_000_000,
-                          n_chains=384)
+    meta = build_workload(os.path.join(tmp, "chr1"), t_size=t_size,
+                          n_chains=n_chains)
     mb = meta["aligned_bases"] / 1e6
-    print(f"[chr1] workload: 256 Mb per genome, 384 chains, {mb:.3f} Mb "
-          f"aligned; built in {time.monotonic() - t0:.3f} s (set-up)")
+    print(f"[chr1] workload: {t_size / 1e6:g} Mb per genome, {n_chains} "
+          f"chains, {mb:.3f} Mb aligned; built in "
+          f"{time.monotonic() - t0:.3f} s (set-up)")
     args = ["scoreChain", meta["chain"], meta["t2bit"], meta["q2bit"],
             os.path.join(tmp, "chr1.dev.chain"), "-linearGap=loose"]
     torch.cuda.reset_peak_memory_stats()
@@ -353,7 +475,170 @@ def phase_chr1(tmp: str, dev) -> tuple[dict, int]:
              "replaces": "genomealignmenttools_tpu/ops/pallas_rescore.py:43",
              "launches": launches, "max_abs_err": worst,
              "ms": min(ms["kernel"]), "plain_ms": min(ms["plain"])}
-    return entry, worst
+    return entry, meta
+
+
+def timed(fn):
+    t0 = time.monotonic()
+    out = fn()
+    return time.monotonic() - t0, out
+
+
+def phase_resident(meta: dict, dev) -> dict:
+    """The chr1 chains through TorchPairChainScorer, following bench.py's
+    resident protocol (bench.py:500-522); returns K2's times and error."""
+    import numpy as np
+    import torch
+
+    from genomealignmenttools_tpu.device.genome import open_genome
+    from genomealignmenttools_tpu.formats.chain import read_chains
+    from genomealignmenttools_tpu.formats.gapcalc import gap_calc_from_file
+    from genomealignmenttools_tpu.formats.scorematrix import \
+        score_scheme_default
+    from genomealignmenttools_tpu.native.chain_io import parse_chain_table
+    from genomealignmenttools_tpu.utils.profiling import (phase_acc_start,
+                                                         phase_acc_stop)
+    from genomealignmenttools_tpu_torch.device import LAUNCHES, perf_reset
+    from genomealignmenttools_tpu_torch.ops import pair_combine as pc
+    from genomealignmenttools_tpu_torch.ops.pair_rescore import \
+        TorchPairChainScorer
+    from genomealignmenttools_tpu_torch.ops.rescore import TorchChainScorer
+
+    scheme, gap_calc = score_scheme_default(), gap_calc_from_file("loose")
+    t_gen, q_gen = open_genome(meta["t2bit"]), open_genome(meta["q2bit"])
+    chains = read_chains(meta["chain"])
+    scorer = TorchChainScorer(scheme, gap_calc, t_gen, q_gen, device=dev,
+                              mode="pair")
+    pcs = TorchPairChainScorer(scorer._dev, gap_calc)
+    jobs, order = scorer._grouped(chains)
+    nblocks = [chains[i].n_blocks for i in order]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    phase_acc_start()
+    pack = scorer._dev._pack(jobs)
+    torch.cuda.synchronize()
+    phases = phase_acc_stop()
+    meta_s, pmeta = timed(lambda: pcs._meta(jobs, nblocks))
+    tiles_mb = pack.tiles.numel() / 1e6
+    print(f"[resident] {len(chains)} chains, {pack.n_blocks} blocks, "
+          f"{pack.m} chunks ({pack.tiles.shape[0]} rows of "
+          f"{pack.tiles.shape[1]} with pads): host pack "
+          f"{phases['rescore: pair pack']:.4f} s, upload of {tiles_mb:.3f} MB "
+          f"int8 tiles {phases['rescore: pair tiles to device']:.4f} s "
+          f"({tiles_mb / phases['rescore: pair tiles to device'] / 1e3:.3f} "
+          f"GB/s), scan metadata (host, then "
+          f"{(pmeta.bias.numel() * 8 + pmeta.end_idx.numel() * 8) / 1e6:.3f}"
+          f" MB up) {meta_s:.4f} s (set-up, once per chain set)")
+
+    perf_reset()
+    out0 = pcs.score_chained(jobs, nblocks, 1)   # first pass
+    singles = []
+    for _ in range(3):
+        dt, out = timed(lambda: pcs.score_chained(jobs, nblocks, 1))
+        check(np.array_equal(out, out0), "resident pass is not repeatable")
+        singles.append(dt)
+    t41, out41 = timed(lambda: pcs.score_chained(jobs, nblocks, 41))
+    check(np.array_equal(out41, out0), "chained passes changed the scores")
+    per_pass = (t41 - min(singles)) / 40
+    launches = LAUNCHES[K2]
+    check(launches == 45, f"resident passes launched {K2} {launches} times")
+    with open(meta["chain"], "rb") as f:
+        table = parse_chain_table(f.read())
+    host = HostNativeScorer(scheme, gap_calc, t_gen, q_gen).score_table(
+        table)[np.asarray(order)]
+    check(np.array_equal(out0.astype(np.float64), host[:, :2]),
+          "resident (global, local) differ from the host-native scores")
+    check(pcs.score(jobs, nblocks) == [(g, loc, int(a)) for g, loc, a in
+                                       host.tolist()],
+          "TorchPairChainScorer.score differs from the host-native scores")
+    hbm = pcs.resident_hbm_bytes(jobs, nblocks)
+    mb = meta["aligned_bases"] / 1e6
+    print(f"[resident] every chain's (global, local, aliBases) equals the "
+          f"host-native scores; {K2} launches {launches} in 45 passes")
+    print(f"[resident] single pass (chunk sums + K2 + finish + fetch) "
+          f"{min(singles) * 1e3:.3f} ms (of {[round(x * 1e3, 3) for x in singles]}"
+          f"); sustained {per_pass * 1e3:.4f} ms per pass = (T(41) "
+          f"{t41 * 1e3:.3f} ms - T(1)) / 40, {mb / per_pass / 1e3:.3f} Gb "
+          f"aligned/s")
+    print(f"[resident] resident_hbm_bytes {hbm} ({hbm / 1e6:.3f} MB) per "
+          f"pass: {hbm / per_pass / 1e9:.3f} GB/s sustained, "
+          f"{100 * hbm / per_pass / HBM_BYTES_PER_S:.2f}% of the published "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+
+    s = scorer._dev.chunk_sums(jobs)
+    start_idx = torch.from_numpy(pmeta.start_idx).to(dev)
+    worst = k2_against_plain(s, pmeta.bias, pmeta.flags, start_idx,
+                             pmeta.end_idx)
+    check(worst == 0, f"K2 != plain at resident shapes (max {worst})")
+    ms = {}
+    # plain, kernel, kernel, plain: compare within one call, in turns
+    for label, fn, reps in (
+            ("plain", pc.pair_combine_scan_plain, 3),
+            ("kernel", pc._launch_kernel, 50),
+            ("kernel", pc._launch_kernel, 50),
+            ("plain", pc.pair_combine_scan_plain, 3)):
+        ms.setdefault(label, []).append(
+            cuda_ms(lambda fn=fn: fn(s, pmeta.bias, pmeta.flags), reps))
+    row_ms = cuda_ms(lambda: pack.tiles.sum(dim=1, dtype=torch.int32), 50)
+    print(f"[resident] K2 at these shapes ({s.numel()} chunks, "
+          f"{-(-s.numel() // pc.TILE)} tiles): kernel {ms['kernel']} ms, "
+          f"plain {ms['plain']} ms; kernel == plain exactly; the int8 row "
+          f"sums (torch) {row_ms:.4f} ms")
+    print(f"[resident] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return {"ms": min(ms["kernel"]), "plain_ms": min(ms["plain"]),
+            "max_abs_err": worst}
+
+
+def phase_cleaner(tmp: str, n_scenarios: int = 2000,
+                  n_bulk: int = 30000) -> int:
+    """chainNet -rescore on the chainCleaner bench workload (bench.py:
+    555-558) through the port in window and pair mode, byte-compared with a
+    host-native run; returns K2's launches in the pair run."""
+    from genomealignmenttools_tpu.engines.chain_net import chain_net
+    from genomealignmenttools_tpu.utils.bench_workload import \
+        build_cleaner_workload
+
+    t0 = time.monotonic()
+    w = build_cleaner_workload(os.path.join(tmp, "cleaner"),
+                               n_scenarios=n_scenarios, n_bulk=n_bulk)
+    print(f"[cleaner] workload: {n_scenarios} planted scenarios + {n_bulk} "
+          f"bulk chains; built in {time.monotonic() - t0:.3f} s (set-up)")
+    out = lambda tag, side: os.path.join(tmp, f"cl.{tag}.{side}.net")  # noqa
+
+    def host_native(tag: str) -> float:
+        t0 = time.monotonic()
+        with open(out(tag, "t"), "w") as t_net, \
+                open(out(tag, "q"), "w") as q_net:
+            chain_net(w["chain"], w["t_sizes"], w["q_sizes"], t_net, q_net,
+                      rescore=True, t_2bit=w["t2bit"], q_2bit=w["q2bit"],
+                      linear_gap="loose", scorer_factory=HostNativeScorer)
+        return time.monotonic() - t0
+
+    secs = {"host-native (cold: decodes both genomes)":
+            host_native("host")}
+    counts = {}
+    for tag, env in (("window", None), ("pair", PAIR_ENV)):
+        t0 = time.monotonic()
+        counts[tag] = run_cli(
+            ["chainNet", w["chain"], w["t_sizes"], w["q_sizes"],
+             out(tag, "t"), out(tag, "q"), "-rescore",
+             "-tNibDir=" + w["t2bit"], "-qNibDir=" + w["q2bit"],
+             "-linearGap=loose"], env)
+        secs[f"port {tag} mode"] = time.monotonic() - t0
+        for side in ("t", "q"):
+            check(same_bytes(out(tag, side), out("host", side)),
+                  f"cleaner-scale chainNet -rescore ({tag}): {side}.net "
+                  f"differs from the host-native run")
+    secs["host-native (warm)"] = host_native("host2")
+    check(counts["window"][KERNEL] > 0, "window run never launched K1")
+    check(counts["pair"][K2] > 0, f"pair run never launched {K2}")
+    print(f"[cleaner] chainNet -rescore: window and pair mode byte-identical "
+          f"to the host-native run; launches window {counts['window']}, "
+          f"pair {counts['pair']}")
+    print("[cleaner] wall seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+    return counts["pair"][K2]
 
 
 def main() -> int:
@@ -362,10 +647,19 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_build()
     worst = phase_kernel(dev)
+    worst_k2 = phase_kernel_k2(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         phase_fixtures(tmp)
-        entry, worst_chr1 = phase_chr1(tmp, dev)
-    entry["max_abs_err"] = max(worst, worst_chr1)
+        entry, chr1 = phase_chr1(tmp, dev)
+        resident = phase_resident(chr1, dev)
+        k2_launches = phase_cleaner(tmp)
+    entry["max_abs_err"] = max(worst, entry["max_abs_err"])
+    k2_entry = {"name": K2, "route": "cuda",
+                "source": "genomealignmenttools_tpu_torch/csrc/combine.cu",
+                "replaces": "genomealignmenttools_tpu/ops/pallas_combine.py:112",
+                "launches": k2_launches,
+                "max_abs_err": max(worst_k2, resident["max_abs_err"]),
+                "ms": resident["ms"], "plain_ms": resident["plain_ms"]}
     jax_like = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib"))
                       or m.startswith("genomealignmenttools_tpu.ops.pa")
@@ -373,7 +667,7 @@ def main() -> int:
     check(not jax_like, f"jax-backed modules were loaded: {jax_like}")
     print("[jax] no jax and no jax-backed module of the reference was loaded")
     print(smi)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, k2_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -13,10 +13,17 @@ Layout (counterparts in genomealignmenttools_tpu/):
                           ctypes (native/__init__.py:31-58 pattern)
   csrc/rescore.cu         K1, the chunk-sum kernel for sm_90a
                           (ops/pallas_rescore.py:43-136 _rescore_kernel)
+  csrc/combine.cu         K2, the segmented combine for sm_90a
+                          (ops/pallas_combine.py:112-147 _combine_kernel)
   ops/window_rescore.py   chunking, plain PyTorch K1, the kernel wrapper,
                           WindowBlockScorer (ops/pallas_rescore.py)
-  ops/rescore.py          TorchGenomeCache, TorchChainScorer
-                          (ops/rescore.py:159-555)
+  ops/pair_combine.py     K2's wrapper, its tiled plain version, the finish
+                          (ops/pallas_combine.py)
+  ops/pair_rescore.py     int8 score tiles resident on the device,
+                          TorchPairBlockScorer, TorchPairChainScorer
+                          (ops/pair_rescore.py)
+  ops/rescore.py          TorchGenomeCache, TorchChainScorer in window or
+                          pair mode (ops/rescore.py:159-555)
   cli/main.py             scoreChain / chainNet / chainCleaner with the torch
                           scorer; every other command forwarded (cli/main.py)
 """

@@ -1,17 +1,20 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Same pattern as genomealignmenttools_tpu/native/__init__.py:31-58 (g++ at
-first use, loaded with ctypes), with nvcc for Hopper: every `csrc/*.cu`
-compiles into one shared library with a plain C interface,
+first use, loaded with ctypes), with nvcc for Hopper: each `csrc/*.cu`
+(K1 in rescore.cu, K2 in combine.cu) compiles to an object, one nvcc per
+source, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/libgat_torch_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
+         -Xcompiler -fPIC -Xptxas -v -o build/<source>.o csrc/<source>.cu
 
-No PyTorch header is included, so a build takes seconds.  The library is
-rebuilt when a source is newer than it.  A failed build raises; there is no
-fallback.  The build directory is `build/` inside this package (gitignored);
-the compiler's output (ptxas register and shared-memory counts) is kept
-beside the library in `build.log`.
+and one more nvcc links the objects into one shared library with a plain C
+interface, build/libgat_torch_kernels.so.  No PyTorch header is included, so
+a build takes seconds.  The library is rebuilt when a source is newer than
+it.  A failed build raises; there is no fallback.  The build directory is
+`build/` inside this package (gitignored); the compilers' output (ptxas
+register and shared-memory counts) is kept beside the library in
+`build.log`.
 """
 
 from __future__ import annotations
@@ -51,25 +54,44 @@ def _nvcc() -> str:
 
 
 def build() -> str:
-    """Compile every csrc/*.cu into LIB_PATH; returns the compiler output."""
+    """Compile every csrc/*.cu into LIB_PATH; returns the compilers' output."""
     global last_build_seconds
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {SRC_DIR}")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, *srcs]
+    nvcc, tag = _nvcc(), os.getpid()
     t0 = time.monotonic()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    log = res.stdout + res.stderr
-    with open(LOG_PATH, "w") as f:
-        f.write(" ".join(cmd) + "\n" + log)
-    if res.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-    os.replace(tmp, LIB_PATH)
+    objs, cmds = [], []
+    for src in srcs:
+        name = os.path.splitext(os.path.basename(src))[0]
+        objs.append(os.path.join(BUILD_DIR, f"{name}.{tag}.o"))
+        cmds.append([nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c",
+                     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", objs[-1],
+                     src])
+    tmp = f"{LIB_PATH}.{tag}.tmp"
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        results = [(cmd, p.communicate()[0], p.returncode)
+                   for cmd, p in zip(cmds, procs)]
+        if all(rc == 0 for _, _, rc in results):
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
+            res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+            results.append((cmd, res.stdout, res.returncode))
+        log = "".join(" ".join(cmd) + "\n" + out for cmd, out, _ in results)
+        with open(LOG_PATH, "w") as f:
+            f.write(log)
+        failed = [rc for _, _, rc in results if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for path in (*objs, tmp):
+            if os.path.exists(path):
+                os.remove(path)
     last_build_seconds = time.monotonic() - t0
     return log
 
@@ -99,6 +121,16 @@ def load_library() -> ctypes.CDLL:
         p,                                    # out (int32, device)
         p,                                    # cudaStream_t
     ]
+    lib.gat_pair_combine.restype = ctypes.c_int
+    lib.gat_pair_combine.argtypes = [
+        p, p, p,                              # s, bias, flags (int32, device)
+        ctypes.c_int64,                       # number of chunks
+        p, p,                                 # c, w (int32, device)
+        p,                                    # scratch (int32, device)
+        p,                                    # cudaStream_t
+    ]
+    lib.gat_pair_combine_scratch.restype = ctypes.c_int64
+    lib.gat_pair_combine_scratch.argtypes = [ctypes.c_int64]
     lib.gat_cuda_error_string.restype = ctypes.c_char_p
     lib.gat_cuda_error_string.argtypes = [ctypes.c_int]
     _lib = lib

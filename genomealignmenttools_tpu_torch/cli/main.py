@@ -9,7 +9,11 @@ TorchChainScorer.  Every other command, and chainCleaner -mergeShards, which
 scores nothing, is handed unchanged to genomealignmenttools_tpu.cli.main.
 
 One flag is the port's own: -device=cuda|cuda:N|cpu (default cuda).  There
-is no silent fallback: without CUDA, the default raises.
+is no silent fallback: without CUDA, the default raises.  The scoring mode
+comes from the environment, as in the reference CLI: GAT_RESCORE=pair for
+the resident pair path (unset, auto or pallas: K1's window path) and
+GAT_COMBINE=auto|device|host for where pair mode combines
+(ops/rescore.py).
 
     python -m genomealignmenttools_tpu_torch.cli.main scoreChain \\
         in.chain t.2bit q.2bit out.chain -linearGap=loose [-device=cpu]

@@ -11,13 +11,16 @@ from __future__ import annotations
 
 import torch
 
-# Traffic counters: bytes shipped host->device and device->host, and calls
-# of a kernel wrapper (the plain CPU version included).
-PERF = {"h2d_bytes": 0, "d2h_bytes": 0, "dispatches": 0}
+# Traffic counters: bytes shipped host->device and device->host; device
+# passes (calls of a kernel wrapper, the plain CPU version included, and
+# pair-mode row-sum passes); combine_overflow counts pair-mode batches whose
+# int32 guard sent them to the host combine.
+PERF = {"h2d_bytes": 0, "d2h_bytes": 0, "dispatches": 0,
+        "combine_overflow": 0}
 
 # Kernel launch counters, one per hand-written kernel; a wrapper adds one
 # where it launches its kernel and nowhere else.
-LAUNCHES = {"rescore_chunks": 0}
+LAUNCHES = {"rescore_chunks": 0, "pair_combine": 0}
 
 
 def perf_reset() -> None:

@@ -1,10 +1,19 @@
 """Batched chain rescoring on the device - the port's main path.
 
-Counterpart of genomealignmenttools_tpu/ops/rescore.py in its `pallas` mode
-(DeviceChainScorer, rescore.py:282-555, constructed at :325-329): per-chunk
-score sums come from K1 (ops/window_rescore.py, csrc/rescore.cu), and the
-host finishes with the native C++ combine `_native_combine` (rescore.py:
-674-710): per-block sums, gap costs and the global/local score scan.
+Counterpart of genomealignmenttools_tpu/ops/rescore.py (DeviceChainScorer,
+rescore.py:282-555) in two of its modes, chosen by `mode` or GAT_RESCORE:
+
+- `pallas` (also `auto` and unset): per-chunk score sums from K1
+  (ops/window_rescore.py, csrc/rescore.cu) over genome codes resident on the
+  device, and the host finishes with the native C++ combine
+  `_native_combine` (rescore.py:674-710): per-block sums, gap costs and the
+  global/local score scan.
+- `pair`: int8 score tiles packed once on the host and kept on the device
+  (ops/pair_rescore.py).  With the device combine (GAT_COMBINE=device, or
+  `auto` when the same chain set is scored again), score_chains runs the
+  chunk sums and K2 (ops/pair_combine.py, csrc/combine.cu) on the device and
+  fetches only (n_chains, 2) int32; otherwise the chunk sums go to the
+  native host combine.
 
 The jax-free helpers of the reference (`_native_combine`) are imported as
 they are; `DeviceChainScorer` is not, since its `score_chains` imports
@@ -15,6 +24,7 @@ engines.scoring.ChainScorer: everything is integer math.
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -27,7 +37,11 @@ from genomealignmenttools_tpu.ops.rescore import _native_combine
 from genomealignmenttools_tpu.utils.profiling import phase
 
 from ..device import PERF, resolve_device
+from .pair_rescore import TorchPairBlockScorer, TorchPairChainScorer
 from .window_rescore import WindowBlockScorer
+
+RESCORE_MODES = ("auto", "pallas", "pair")
+COMBINE_MODES = ("auto", "device", "host")
 
 # Process-wide device-resident genome codes, shared by every
 # TorchGenomeCache (as _DEV_CODES, rescore.py:159-187): the host decode is
@@ -68,19 +82,35 @@ class TorchChainScorer:
     """Drop-in ChainScorer whose per-base block sums run on the device.
 
     Interface of DeviceChainScorer (rescore.py:282-555).  `_dev` is the
-    window block scorer, which is not host-native, so chainCleaner and
-    chainNet -rescore batch their sub-chains through score_chains."""
+    window or the pair block scorer; neither is host-native, so chainCleaner
+    and chainNet -rescore batch their sub-chains through score_chains."""
 
     def __init__(self, scheme, gap_calc, t_genome, q_genome,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mode: str | None = None):
         self.scheme = scheme
         self.gap_calc = gap_calc
         self.t_genome = t_genome
         self.q_genome = q_genome
         self.device = resolve_device(device)
-        self._dev = WindowBlockScorer(
-            np.asarray(scheme.lut), TorchGenomeCache(t_genome, self.device),
-            TorchGenomeCache(q_genome, self.device))
+        if mode is None:
+            mode = os.environ.get("GAT_RESCORE", "auto")
+        if mode not in RESCORE_MODES:
+            raise ValueError(
+                f"GAT_RESCORE={mode!r}: the port runs {', '.join(RESCORE_MODES)}"
+                "; the reference's other modes are not ported (ROADMAP.md)")
+        self.mode = mode
+        if mode == "pair":
+            self._dev = TorchPairBlockScorer(np.asarray(scheme.lut), t_genome,
+                                             q_genome, self.device)
+        else:
+            self._dev = WindowBlockScorer(
+                np.asarray(scheme.lut),
+                TorchGenomeCache(t_genome, self.device),
+                TorchGenomeCache(q_genome, self.device))
+        self._pair_chain_scorer = None
+        self._concat_cache: dict = {}
+        self._repeat_workload = False
 
     def score_arrays(self, chain):
         bs = self._dev.block_scores(chain.t_name, chain.q_name,
@@ -99,24 +129,72 @@ class TorchChainScorer:
 
     def _grouped(self, chains: list):
         """(jobs, order): one job (t_name, q_name, strand, int64 blocks) per
-        (t, q, strand) group, blocks concatenated in `order`."""
+        (t, q, strand) group, blocks concatenated in `order`.  The
+        concatenations are memoized by the identity of the chains' blocks
+        arrays, which the memo pins (rescore.py:356-391): the same chain set
+        gives the same arrays, so the pair pack stays cached on the device,
+        and `_repeat_workload` says so."""
         groups: dict[tuple[str, str, str], list[int]] = {}
         for i, c in enumerate(chains):
             groups.setdefault((c.t_name, c.q_name, c.q_strand), []).append(i)
         jobs = []
         order: list[int] = []
+        all_hit = bool(groups)
         for (tn, qn, strand), idxs in groups.items():
-            blocks = np.concatenate([chains[i].blocks for i in idxs])
-            jobs.append((tn, qn, strand, blocks.astype(np.int64, copy=False)))
+            parts = [chains[i].blocks for i in idxs]
+            ck = tuple(id(b) for b in parts)
+            hit = self._concat_cache.get(ck)
+            if hit is not None and all(a is b for a, b in zip(hit[0], parts)):
+                blocks = hit[1]
+            else:
+                all_hit = False
+                blocks = np.concatenate(parts).astype(np.int64, copy=False)
+                if len(self._concat_cache) > 32:
+                    self._concat_cache.clear()
+                self._concat_cache[ck] = (parts, blocks)
+            jobs.append((tn, qn, strand, blocks))
             order.extend(idxs)
+        self._repeat_workload = all_hit
         return jobs, order
 
+    def _device_combine(self) -> bool:
+        """GAT_COMBINE: `device` or `host`; `auto` (the default) takes the
+        device combine only for a chain set scored before (rescore.py:
+        408-419).  Only the pair scorer has a device combine."""
+        combine = os.environ.get("GAT_COMBINE", "auto")
+        if combine not in COMBINE_MODES:
+            raise ValueError(f"GAT_COMBINE={combine!r}: use one of "
+                             f"{', '.join(COMBINE_MODES)}")
+        if combine == "auto":
+            combine = "device" if self._repeat_workload else "host"
+        return combine == "device" and self.mode == "pair"
+
+    def _pair_chain(self) -> TorchPairChainScorer:
+        if self._pair_chain_scorer is None:
+            self._pair_chain_scorer = TorchPairChainScorer(self._dev,
+                                                           self.gap_calc)
+        return self._pair_chain_scorer
+
     def score_chains(self, chains: list) -> list[tuple[float, float, int]]:
-        """(global, local, aliBases) per chain, in input order: one kernel
-        launch per (t, q, strand) group, one fetch, native combine."""
+        """(global, local, aliBases) per chain, in input order.  Pair mode
+        with the device combine: one pass of chunk sums and K2 over the whole
+        set, one (n_chains, 2) fetch; when a chain's scores could leave
+        int32, the host combine below over the same chunk sums, counted in
+        PERF["combine_overflow"].  Otherwise the chunk sums of every
+        (t, q, strand) group, one fetch, native combine."""
         jobs, order = self._grouped(chains)
-        cs, c_block, n_blocks = self._dev.chunk_scores_multi(jobs)
         results: list = [None] * len(chains)
+        if self._device_combine():
+            try:
+                scored = self._pair_chain().score(
+                    jobs, [chains[i].n_blocks for i in order])
+            except OverflowError:
+                PERF["combine_overflow"] += 1
+            else:
+                for k, i in enumerate(order):
+                    results[i] = scored[k]
+                return results
+        cs, c_block, n_blocks = self._dev.chunk_scores_multi(jobs)
         lib = get_lib()
         if lib is not None:
             all_blocks = (np.concatenate([b for (_, _, _, b) in jobs])
@@ -189,9 +267,12 @@ class TorchChainScorer:
         return results
 
 
-def torch_scorer_factory(device: str | torch.device | None = None):
+def torch_scorer_factory(device: str | torch.device | None = None,
+                         mode: str | None = None):
     """Engine-side scorer factory (the `scorer_factory` argument of
     score_chain_file, chain_net and clean_chains): TorchChainScorer on
-    `device`.  Counterpart of auto_scorer_factory (rescore.py:558-593),
-    without its backend probing: the device is named, never guessed."""
-    return functools.partial(TorchChainScorer, device=resolve_device(device))
+    `device` in `mode` (None: GAT_RESCORE).  Counterpart of
+    auto_scorer_factory (rescore.py:558-593), without its backend probing:
+    the device is named, never guessed."""
+    return functools.partial(TorchChainScorer, device=resolve_device(device),
+                             mode=mode)

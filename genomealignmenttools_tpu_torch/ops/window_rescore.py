@@ -31,23 +31,24 @@ from ..device import LAUNCHES, PERF
 CHUNK = 256  # max bases per chunk (pallas_rescore.py:37)
 
 
-def chunk_blocks(blocks: np.ndarray):
-    """Split (n, 4) [tS, tE, qS, qE] blocks into chunks of <= CHUNK bases.
+def chunk_blocks(blocks: np.ndarray, chunk: int = CHUNK):
+    """Split (n, 4) [tS, tE, qS, qE] blocks into chunks of <= `chunk` bases.
 
     Returns (t_off int64, q_off int64, length int32, c_block int64), in
     block order.  A block of size 0 still gets one chunk of length 0, as in
-    pack_windows, so c_block is the same as the reference's."""
+    pack_windows and pair_rescore.chunk_blocks (pair_rescore.py:192-206), so
+    c_block is the same as the reference's."""
     blocks = np.asarray(blocks)
     n = blocks.shape[0]
     sizes = (blocks[:, 1] - blocks[:, 0]).astype(np.int64)
-    per_block = np.maximum((sizes + CHUNK - 1) // CHUNK, 1)
+    per_block = np.maximum((sizes + chunk - 1) // chunk, 1)
     c_block = np.repeat(np.arange(n, dtype=np.int64), per_block)
     first = np.cumsum(per_block) - per_block
     within = np.arange(c_block.shape[0], dtype=np.int64) - np.repeat(
         first, per_block)
-    t_off = blocks[c_block, 0].astype(np.int64) + within * CHUNK
-    q_off = blocks[c_block, 2].astype(np.int64) + within * CHUNK
-    length = np.minimum(sizes[c_block] - within * CHUNK, CHUNK).astype(
+    t_off = blocks[c_block, 0].astype(np.int64) + within * chunk
+    q_off = blocks[c_block, 2].astype(np.int64) + within * chunk
+    length = np.minimum(sizes[c_block] - within * chunk, chunk).astype(
         np.int32)
     return t_off, q_off, length, c_block
 

@@ -3,7 +3,9 @@
 scoreChain, chainNet -rescore and chainCleaner through
 genomealignmenttools_tpu_torch.cli.main with -device=cpu must write exactly
 the C goldens and exactly what the JAX package's CLI writes, and must score
-through the port's scorer (its dispatch counter moves).  Other commands are
+through the port's scorer (its dispatch counter moves); in pair mode
+(GAT_RESCORE=pair GAT_COMBINE=device) they must write the same goldens, and
+chainNet -rescore and chainCleaner must go through the device combine.  Other commands are
 forwarded to the JAX CLI unchanged.
 """
 
@@ -108,18 +110,25 @@ def test_usage_and_unsupported_flags(fixtures_dir):
     assert port_main(["noSuchTool"]) == 255
 
 
-@pytest.mark.parametrize("tag,flag", [
+THRESHOLDS = [
     ("lrfold60", "-LRfoldThreshold=60"),
     ("fold80", "-foldThreshold=80"),
     ("maxsus8000", "-maxSuspectScore=8000"),
     ("minbroken1500k", "-minBrokenChainScore=1500000"),
     ("minlrgap21k", "-minLRGapSize=21000"),
     ("maxbases200", "-maxSuspectBases=200"),
-])
+]
+
+
+@pytest.mark.parametrize("tag,flag", THRESHOLDS)
 def test_chain_cleaner_threshold_flags_match_goldens(fixtures_dir, golden_dir,
                                                      tmp_path, tag, flag):
     """The port CLI's own parse of chainCleaner's threshold flags, held
     against the live-C goldens of tests/test_chain_cleaner_thresholds.py."""
+    _check_cleaner_thresholds(fixtures_dir, golden_dir, tmp_path, tag, flag)
+
+
+def _check_cleaner_thresholds(fixtures_dir, golden_dir, tmp_path, tag, flag):
     f = lambda n: os.path.join(fixtures_dir, n)  # noqa: E731
     out_chain, out_bed = str(tmp_path / "o.chain"), str(tmp_path / "o.bed")
     assert port_main(["chainCleaner", f("synthetic.scored.sorted.chain"),
@@ -147,3 +156,44 @@ def test_chain_cleaner_do_pairs_matches_goldens(fixtures_dir, golden_dir,
                                                 f"chainCleaner.{mode}.bed"))
     assert _read(out_chain) == _read(
         os.path.join(gold, f"chainCleaner.{mode}.out.chain"))
+
+
+@pytest.fixture
+def pair_mode(monkeypatch):
+    """GAT_RESCORE=pair GAT_COMBINE=device; returns the list that counts
+    the pair scorer's calls of the combine wrapper."""
+    from genomealignmenttools_tpu_torch.ops import pair_rescore
+    monkeypatch.setenv("GAT_RESCORE", "pair")
+    monkeypatch.setenv("GAT_COMBINE", "device")
+    calls = []
+    real = pair_rescore.pair_combine_scan
+
+    def spy(*args):
+        calls.append(args[0].numel())
+        return real(*args)
+    monkeypatch.setattr(pair_rescore, "pair_combine_scan", spy)
+    return calls
+
+
+@pytest.mark.parametrize("tool", ["scoreChain", "chainNetRescore",
+                                  "chainCleaner", "chainCleanerNet"])
+def test_port_cli_pair_mode_matches_goldens(fixtures_dir, golden_dir,
+                                            tmp_path, pair_mode, tool):
+    """Pair mode with the device combine: the goldens byte for byte;
+    chainNet -rescore and chainCleaner go through the combine (scoreChain
+    takes score_table and the native combine, as the reference does)."""
+    argv, outputs = _tools(fixtures_dir, str(tmp_path))[tool]
+    perf_reset()
+    assert port_main(argv + ["-device=cpu"]) == 0
+    assert PERF["dispatches"] > 0
+    assert (len(pair_mode) > 0) == (tool != "scoreChain")
+    for got, golden in outputs:
+        assert _read(got) == _read(os.path.join(golden_dir, golden))
+
+
+@pytest.mark.parametrize("tag,flag", THRESHOLDS)
+def test_chain_cleaner_threshold_flags_pair_mode(fixtures_dir, golden_dir,
+                                                 tmp_path, pair_mode, tag,
+                                                 flag):
+    _check_cleaner_thresholds(fixtures_dir, golden_dir, tmp_path, tag, flag)
+    assert pair_mode

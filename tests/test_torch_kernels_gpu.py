@@ -13,12 +13,16 @@ import numpy as np
 import pytest
 import torch
 
+from combine_cases import combine_case, edge_chains, random_chains
 from genomealignmenttools_tpu.device.genome import Genome, revcomp_codes
 from genomealignmenttools_tpu.formats.chain import read_chains
 from genomealignmenttools_tpu.formats.gapcalc import gap_calc_from_file
 from genomealignmenttools_tpu.formats.scorematrix import score_scheme_default
 from genomealignmenttools_tpu_torch.device import LAUNCHES
+from genomealignmenttools_tpu_torch.ops import pair_combine as pc
 from genomealignmenttools_tpu_torch.ops import window_rescore as wr
+from genomealignmenttools_tpu_torch.ops.pair_rescore import \
+    pair_chain_scores_plain
 from genomealignmenttools_tpu_torch.ops.rescore import TorchChainScorer
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -96,3 +100,51 @@ def test_torch_chain_scorer_cuda_matches_cpu(cuda_device):
     before = LAUNCHES["rescore_chunks"]
     assert on_card.score_chains(chains) == on_cpu.score_chains(chains)
     assert LAUNCHES["rescore_chunks"] > before
+
+
+def _combine_inputs(name):
+    rng = np.random.default_rng(17)
+    if name == "edge":           # carries across K2's tiles, pad chunks
+        return combine_case(rng, *edge_chains(pc.TILE), pad_to=pc.TILE)
+    if name == "ragged":         # no padding: K2 masks its last tile
+        return combine_case(rng, *random_chains(rng, 300))
+    return combine_case(rng, *random_chains(rng, 5000), pad_to=pc.TILE)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["edge", "ragged", "random"])
+def test_pair_combine_kernel_matches_plain(cuda_device, name):
+    s, bias, flags, start_idx, end_idx, _ = _combine_inputs(name)
+    host = [torch.from_numpy(a) for a in (s, bias, flags, start_idx,
+                                          end_idx)]
+    card = [a.to(cuda_device) for a in host]
+    before = LAUNCHES["pair_combine"]
+    c, w = pc.pair_combine_scan(*card[:3])
+    torch.cuda.synchronize()
+    assert LAUNCHES["pair_combine"] == before + 1
+    assert c.dtype == w.dtype == torch.int32 and c.device == cuda_device
+    c_plain, w_plain = pc.pair_combine_scan_plain(*card[:3])
+    assert torch.equal(c, c_plain) and torch.equal(w, w_plain)
+    c_cpu, w_cpu = pc.pair_combine_scan(*host[:3])
+    assert torch.equal(c.cpu(), c_cpu) and torch.equal(w.cpu(), w_cpu)
+    fin = pc.pair_combine_finish(c, w, card[4])
+    staged = pair_chain_scores_plain(*card[:3], card[3], card[4])
+    assert torch.equal(fin.to(torch.int64), staged)
+
+
+@pytest.mark.gpu
+def test_torch_chain_scorer_pair_mode_cuda_matches_cpu(cuda_device,
+                                                       monkeypatch):
+    monkeypatch.setenv("GAT_COMBINE", "device")
+    scheme = score_scheme_default()
+    gc = gap_calc_from_file("loose")
+    t_genome = Genome(os.path.join(FIXTURES, "target.2bit"))
+    q_genome = Genome(os.path.join(FIXTURES, "query.2bit"))
+    chains = read_chains(os.path.join(FIXTURES, "synthetic.chain"))
+    on_card = TorchChainScorer(scheme, gc, t_genome, q_genome,
+                               device=cuda_device, mode="pair")
+    on_cpu = TorchChainScorer(scheme, gc, t_genome, q_genome, device="cpu",
+                              mode="pair")
+    before = LAUNCHES["pair_combine"]
+    assert on_card.score_chains(chains) == on_cpu.score_chains(chains)
+    assert LAUNCHES["pair_combine"] == before + 1

@@ -58,13 +58,27 @@ print("LOADED", loaded)
 """
 
 
-@pytest.mark.parametrize("tool", ["scoreChain", "chainNetRescore",
-                                  "chainCleaner"])
-def test_port_cli_runs_without_jax(fixtures_dir, golden_dir, tmp_path, tool):
+def _run(fixtures_dir, golden_dir, tmp_path, tool, **env):
     res = subprocess.run(
         [sys.executable, "-c", _SCRIPT, fixtures_dir, golden_dir,
          str(tmp_path), tool],
-        env=hermetic_cpu_env(), capture_output=True, text=True, timeout=300,
-        cwd=os.path.dirname(fixtures_dir))
+        env={**hermetic_cpu_env(), **env}, capture_output=True, text=True,
+        timeout=300, cwd=os.path.dirname(fixtures_dir))
     assert res.returncode == 0, res.stderr[-3000:]
     assert "LOADED []" in res.stdout, res.stdout[-3000:]
+
+
+@pytest.mark.parametrize("tool", ["scoreChain", "chainNetRescore",
+                                  "chainCleaner"])
+def test_port_cli_runs_without_jax(fixtures_dir, golden_dir, tmp_path, tool):
+    _run(fixtures_dir, golden_dir, tmp_path, tool)
+
+
+@pytest.mark.parametrize("tool", ["scoreChain", "chainNetRescore",
+                                  "chainCleaner"])
+def test_port_cli_pair_mode_runs_without_jax(fixtures_dir, golden_dir,
+                                             tmp_path, tool):
+    """Pair mode loads neither jax nor the reference's pair_rescore or
+    pallas_combine (both import jax)."""
+    _run(fixtures_dir, golden_dir, tmp_path, tool, GAT_RESCORE="pair",
+         GAT_COMBINE="device")
