@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's rescoring path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's rescoring and gap-filling paths once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -21,26 +22,46 @@ non-zero:
               cases (a chain over more than three of K2's tiles, single-chunk
               chains, a chain ending on a tile's last chunk, pad chunks), an
               unpadded input, and 7, 800 and 200,000 random chains.
-5. fixtures - scoreChain, chainNet -rescore and chainCleaner through the
+5. kernel K3 - K3 against its plain version on the card, meta and moves
+              exactly, on the case sets of tests/band_cases.py: both modes at
+              max_insert 7, 20 and 100, homologous, unrelated and N-run
+              problems up to 2,000 bases, sides of one base, both
+              directions, a band that runs off `b`, out-of-band tracebacks
+              in both modes and a band centre that leaves the state arrays;
+              then BandExtBatch on the card against numpy band_ext on a
+              subset, errors included.
+6. fixtures - scoreChain, chainNet -rescore and chainCleaner through the
               port's CLI on the card, byte-compared with tests/golden; each
               must launch K1.  Then the same in pair mode (GAT_RESCORE=pair
               GAT_COMBINE=device): chainNet -rescore and chainCleaner must
               launch K2.
-6. chr1     - the bench workload (utils/bench_workload.py, 256 Mb per genome,
+7. chr1     - the bench workload (utils/bench_workload.py, 256 Mb per genome,
               384 chains, ~367 Mb aligned) through the port's scoreChain,
               byte-compared with a host-native run of the same file; cold and
               warm seconds, Mb aligned per second, K1 launches, and K1's time
               against the plain version's at the main path's shapes.
-7. resident - the same chains through TorchPairChainScorer (bench.py's
+8. resident - the same chains through TorchPairChainScorer (bench.py's
               resident protocol): every chain's (global, local) equal to the
               host-native scores; pack, upload, single-pass and sustained
               per-pass times, bytes a pass moves against the card's published
               HBM bandwidth, K2's time against the plain version's at these
               shapes, peak device memory.
-8. cleaner  - chainNet -rescore on the chainCleaner bench workload
+9. cleaner  - chainNet -rescore on the chainCleaner bench workload
               (build_cleaner_workload, as bench.py builds it) through the
               port in window mode and in pair mode with the device combine,
               each byte-compared with a host-native run; wall seconds of all.
+10. gap fixtures - RepeatFiller --refQuirks through the port's CLI on the
+              card, byte-identical to tests/golden; RepeatFiller in clean
+              mode and patchChain (6 arguments, with and without -unmask),
+              byte-compared with the reference CLI run in a subprocess with
+              GAT_BAND=host; each port run must launch K3.
+11. repeatfiller - build_repeatfiller_workload(n_gaps=600), bench.py's
+              depth, through the port's RepeatFiller (must launch K3) and
+              the host-native reference CLI, byte-compared, wall seconds of
+              both; then the workload's extension problems (align_prepare)
+              through K3 and through the plain version in K3's sub-batches:
+              equal, CUDA-event ms of each, problem and column counts, peak
+              device memory.
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {"platform": "gpu", ...}}.  Imports nothing of jax.
@@ -61,6 +82,7 @@ FIX = os.path.join(REPO, "tests", "fixtures")
 GOLD = os.path.join(REPO, "tests", "golden")
 KERNEL = "rescore_chunks"
 K2 = "pair_combine"
+K3 = "band_ext"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published HBM3 bandwidth
 PAIR_ENV = {"GAT_RESCORE": "pair", "GAT_COMBINE": "device"}
 
@@ -640,6 +662,224 @@ def phase_cleaner(tmp: str, n_scenarios: int = 2000,
           + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
     return counts["pair"][K2]
 
+def k3_against_plain(args, mat, global_mode, gap_open, gap_extend,
+                     max_insert) -> tuple[int, "object"]:
+    """K3 == band_ext_plain on one set of card inputs; returns the max abs
+    difference over meta and moves, and K3's meta."""
+    import torch
+
+    from genomealignmenttools_tpu_torch.ops import band_batch as bb
+    got = bb.band_ext_cuda(*args, mat, global_mode, gap_open, gap_extend,
+                           max_insert)
+    want = bb.band_ext_plain(*args, mat, global_mode, gap_open, gap_extend,
+                             max_insert)
+    torch.cuda.synchronize()
+    diff = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+               for g, w in zip(got, want))
+    return diff, got[0]
+
+
+def phase_kernel_k3(dev) -> int:
+    """Exact K3 == plain on the card on every case set, and BandExtBatch on
+    the card == numpy band_ext on a subset; returns the max abs
+    difference."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from band_cases import kernel_cases, outcome, raw_inputs
+    from genomealignmenttools_tpu.formats.scorematrix import \
+        score_scheme_default
+    from genomealignmenttools_tpu.ops.band_ext import band_ext
+    from genomealignmenttools_tpu_torch.ops import band_batch as bb
+
+    cm = score_scheme_default().char_matrix()
+    worst, errs, n_oracle = 0, set(), 0
+    for label, g, gap_open, gap_extend, mi, probs in kernel_cases():
+        batch = bb.BandExtBatch(g, cm, gap_open, gap_extend, mi, device=dev)
+        args = raw_inputs(probs, dev)
+        diff, meta = k3_against_plain(args, batch.mat, g, gap_open,
+                                      gap_extend, mi)
+        worst = max(worst, diff)
+        check(diff == 0, f"K3 != plain on {label} (max {diff})")
+        err = meta[:, 5].cpu()
+        errs |= {(g, int(e)) for e in err.unique()}
+        sub = probs[:8]
+        want = [outcome(lambda p=p: band_ext(g, cm, gap_open, gap_extend,
+                                             mi, *p)) for p in sub]
+        fine = [p for p, w in zip(sub, want) if isinstance(w, tuple)]
+        check(batch.run(fine) == [w for w in want if isinstance(w, tuple)],
+              f"BandExtBatch on the card != band_ext on {label}")
+        for p, w in zip(sub, want):
+            if not isinstance(w, tuple):
+                check(outcome(lambda p=p: batch.run([p])) is w,
+                      f"BandExtBatch on the card does not raise {w} on "
+                      f"{label}")
+        n_oracle += len(sub)
+        print(f"[kernel K3] {label}: {int(args[1].numel()) - 1} problems, "
+              f"{int(args[0].numel())} + {int(args[2].numel())} bases, "
+              f"longest a {max(len(p[0]) for p in probs)}; "
+              f"{int((meta[:, 0] != 0).sum())} aligned, err codes "
+              f"{sorted(int(e) for e in err.unique())}: kernel == plain "
+              f"exactly")
+    check({(False, 1), (True, 1), (True, 2)} <= errs,
+          f"the K3 cases lost an error case: {sorted(errs)}")
+    print(f"[kernel K3] BandExtBatch on the card == numpy band_ext on "
+          f"{n_oracle} problems (tuples, AssertionError and IndexError)")
+    return worst
+
+
+def reference_cli(args: list[str]) -> float:
+    """The reference CLI in a subprocess with its host-native band batch
+    (GAT_BAND=host); returns its wall seconds."""
+    env = dict(os.environ, GAT_BAND="host",
+               PYTHONPATH=os.pathsep.join(
+                   [REPO] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.monotonic()
+    res = subprocess.run(
+        [sys.executable, "-m", "genomealignmenttools_tpu.cli.main", *args],
+        env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
+    secs = time.monotonic() - t0
+    check(res.returncode == 0, f"reference CLI {args[0]} exited "
+          f"{res.returncode}: {res.stderr[-2000:]}")
+    return secs
+
+
+def phase_gap_fixtures(tmp: str) -> None:
+    """RepeatFiller and patchChain through the port's CLI on the card."""
+    f = lambda n: os.path.join(FIX, n)  # noqa: E731
+    o = lambda n: os.path.join(tmp, n)  # noqa: E731
+    rf = ["RepeatFiller", "-c", f("repeatfiller_input.chain"),
+          "-T2", f("target.2bit"), "-Q2", f("query.2bit"), "-o"]
+    pc = ["patchChain", f("repeatfiller_input.chain"), f("target.2bit"),
+          f("query.2bit"), f("target.chrom.sizes"), f("query.chrom.sizes")]
+    runs = [("RepeatFiller --refQuirks", rf, ["--refQuirks"], "rfq.chain"),
+            ("RepeatFiller", rf, [], "rf.chain"),
+            ("patchChain", pc, [], "pc.psl"),
+            ("patchChain -unmask", pc, ["-unmask"], "pcu.psl")]
+    for label, argv, extra, name in runs:
+        t0 = time.monotonic()
+        counts = run_cli(argv + [o(name)] + extra)
+        secs = time.monotonic() - t0
+        check(counts[K3] > 0, f"{label} never launched {K3}")
+        if label == "RepeatFiller --refQuirks":
+            want = os.path.join(GOLD, "repeatfiller_reference_output.chain")
+        else:
+            want = o("ref." + name)
+            reference_cli(argv + [want] + extra)
+        check(same_bytes(o(name), want), f"{label}: {o(name)} != {want}")
+        print(f"[gap fixtures] {label}: byte-identical to "
+              f"{os.path.basename(want)}"
+              + ("" if want.startswith(GOLD) else " (reference CLI, "
+                 "GAT_BAND=host)")
+              + f"; {K3} launches {counts[K3]}; {secs:.3f} s")
+
+
+def phase_repeatfiller(tmp: str, dev, n_gaps: int = 600) -> dict:
+    """RepeatFiller at bench.py's depth; returns K3's kernels-line numbers."""
+    import torch
+
+    from genomealignmenttools_tpu.device.genome import open_genome
+    from genomealignmenttools_tpu.engines.repeat_filler import (
+        _gap_job_regions, harvest_gap_jobs)
+    from genomealignmenttools_tpu.formats.scorematrix import \
+        score_scheme_default
+    from genomealignmenttools_tpu.utils.bench_workload import \
+        build_repeatfiller_workload
+    from genomealignmenttools_tpu.utils.profiling import (phase_acc_start,
+                                                         phase_acc_stop)
+    from genomealignmenttools_tpu_torch.ops import band_batch as bb
+    from genomealignmenttools_tpu_torch.ops.seed_extend import \
+        TorchGapAligner
+
+    t0 = time.monotonic()
+    w = build_repeatfiller_workload(os.path.join(tmp, "rf"), n_gaps=n_gaps)
+    print(f"[repeatfiller] workload: {n_gaps} gaps; built in "
+          f"{time.monotonic() - t0:.3f} s (set-up)")
+    args = ["RepeatFiller", "-c", w["chain"], "-T2", w["t2bit"],
+            "-Q2", w["q2bit"], "-o"]
+    port_out, host_out = (os.path.join(tmp, "rf.port.chain"),
+                          os.path.join(tmp, "rf.host.chain"))
+    torch.cuda.reset_peak_memory_stats()
+    phase_acc_start()
+    t0 = time.monotonic()
+    counts = run_cli(args + [port_out])   # counts reset just before
+    port_s = time.monotonic() - t0
+    phases = phase_acc_stop()
+    check(counts[K3] > 0, f"{n_gaps}-gap RepeatFiller never launched {K3}")
+    peak_cli = torch.cuda.max_memory_allocated()
+    host_s = reference_cli(args + [host_out])
+    check(same_bytes(port_out, host_out),
+          f"{n_gaps}-gap RepeatFiller differs from the host-native run")
+    start_s = reference_cli(["RepeatFiller", "-h"])
+    band_s = sum(v for k, v in phases.items() if k.startswith("band: "))
+    print(f"[repeatfiller] port RepeatFiller {port_s:.3f} s ({K3} launches "
+          f"{counts[K3]}, peak device memory {peak_cli / 2**30:.3f} GiB); "
+          f"band stage {band_s:.4f} s: "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in phases.items())
+          + f"; the rest (seeds, HSP scan, chaining, splice) "
+          f"{port_s - band_s:.3f} s")
+    print(f"[repeatfiller] host-native reference CLI (subprocess, "
+          f"GAT_BAND=host) {host_s:.3f} s, of which interpreter start-up "
+          f"and imports (RepeatFiller -h) {start_s:.3f} s; byte-identical "
+          f"to the port's output")
+
+    # the workload's extension problems, as _run_gap_jobs batches them
+    scheme = score_scheme_default()
+    aligner = TorchGapAligner(
+        scheme.lut, seed_len=6, hsp_threshold=1500, gapped_threshold=2000,
+        gap_open=scheme.gap_open, gap_extend=scheme.gap_extend,
+        char_matrix=scheme.char_matrix(), device=dev)
+    with open(w["chain"]) as fh:
+        lines = [ln + "\n" for ln in fh.read().split("\n")]
+    jobs = harvest_gap_jobs(lines, 0, 0, 0, 10, 10, 100000, 100000)
+    t_gen, q_gen = open_genome(w["t2bit"]), open_genome(w["q2bit"])
+    t0 = time.monotonic()
+    probs = []
+    for job in jobs:
+        (t_codes, q_codes, _ts, _qs, t_lo, t_hi, q_lo,
+         q_hi) = _gap_job_regions(job, t_gen, q_gen)
+        probs.extend(aligner.align_prepare(t_codes, q_codes, t_lo, t_hi,
+                                           q_lo, q_hi)[2])
+    prep_s = time.monotonic() - t0
+    batch = aligner._band_batch()
+    _, todo = bb.orient(probs, batch.a_max)
+    band = 2 * batch.max_insert + 1
+    ranges = bb.sub_batches([len(t[1]) for t in todo], band, False,
+                            bb.PARENT_BUDGET)
+    a_cols = sum(len(t[1]) for t in todo)
+    b_bases = sum(len(t[2]) for t in todo)
+    print(f"[repeatfiller] {len(jobs)} gaps -> {len(probs)} extension "
+          f"problems ({len(todo)} with both sides), {a_cols} DP columns "
+          f"({a_cols * band} band cells), {b_bases} b bases; "
+          f"align_prepare (host) {prep_s:.3f} s; {len(ranges)} K3 "
+          f"sub-batches under {bb.PARENT_BUDGET} parent bytes")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    worst, ms = 0, {"kernel": 0.0, "plain": 0.0}
+    call = lambda fn, a: fn(*a, batch.mat, False, batch.gap_open,  # noqa
+                            batch.gap_extend, batch.max_insert)
+    for lo, hi in ranges:
+        a = [torch.from_numpy(x).to(dev) for x in bb.pack(todo[lo:hi])]
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        plain = call(bb.band_ext_plain, a)
+        end.record()
+        torch.cuda.synchronize()
+        ms["plain"] += start.elapsed_time(end)
+        ms["kernel"] += cuda_ms(lambda a=a: call(bb._launch_kernel, a), 3)
+        got = call(bb._launch_kernel, a)
+        torch.cuda.synchronize()
+        worst = max(worst, *(int((g.to(torch.int64) - p.to(torch.int64))
+                                 .abs().max()) for g, p in zip(got, plain)))
+        del plain, got
+    check(worst == 0, f"K3 != plain at the {n_gaps}-gap shapes (max {worst})")
+    print(f"[repeatfiller] K3 at the {n_gaps}-gap shapes: kernel "
+          f"{ms['kernel']:.3f} ms, plain {ms['plain']:.3f} ms (summed over "
+          f"{len(ranges)} sub-batches); kernel == plain exactly; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return {"launches": counts[K3], "max_abs_err": worst,
+            "ms": ms["kernel"], "plain_ms": ms["plain"]}
+
 
 def main() -> int:
     name, smi = phase_device()
@@ -648,11 +888,14 @@ def main() -> int:
     phase_build()
     worst = phase_kernel(dev)
     worst_k2 = phase_kernel_k2(dev)
+    worst_k3 = phase_kernel_k3(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         phase_fixtures(tmp)
         entry, chr1 = phase_chr1(tmp, dev)
         resident = phase_resident(chr1, dev)
         k2_launches = phase_cleaner(tmp)
+        phase_gap_fixtures(tmp)
+        rf = phase_repeatfiller(tmp, dev)
     entry["max_abs_err"] = max(worst, entry["max_abs_err"])
     k2_entry = {"name": K2, "route": "cuda",
                 "source": "genomealignmenttools_tpu_torch/csrc/combine.cu",
@@ -660,6 +903,12 @@ def main() -> int:
                 "launches": k2_launches,
                 "max_abs_err": max(worst_k2, resident["max_abs_err"]),
                 "ms": resident["ms"], "plain_ms": resident["plain_ms"]}
+    k3_entry = {"name": K3, "route": "cuda",
+                "source": "genomealignmenttools_tpu_torch/csrc/band.cu",
+                "replaces": "genomealignmenttools_tpu/ops/pallas_band.py:63",
+                "launches": rf["launches"],
+                "max_abs_err": max(worst_k3, rf["max_abs_err"]),
+                "ms": rf["ms"], "plain_ms": rf["plain_ms"]}
     jax_like = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib"))
                       or m.startswith("genomealignmenttools_tpu.ops.pa")
@@ -667,7 +916,7 @@ def main() -> int:
     check(not jax_like, f"jax-backed modules were loaded: {jax_like}")
     print("[jax] no jax and no jax-backed module of the reference was loaded")
     print(smi)
-    print(json.dumps({"kernels": [entry, k2_entry]}))
+    print(json.dumps({"kernels": [entry, k2_entry, k3_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -15,6 +15,9 @@ Layout (counterparts in genomealignmenttools_tpu/):
                           (ops/pallas_rescore.py:43-136 _rescore_kernel)
   csrc/combine.cu         K2, the segmented combine for sm_90a
                           (ops/pallas_combine.py:112-147 _combine_kernel)
+  csrc/band.cu            K3, the batched wandering-band extension DP for
+                          sm_90a (ops/pallas_band.py:63-340, the inner
+                          `kernel` of _build_kernel)
   ops/window_rescore.py   chunking, plain PyTorch K1, the kernel wrapper,
                           WindowBlockScorer (ops/pallas_rescore.py)
   ops/pair_combine.py     K2's wrapper, its tiled plain version, the finish
@@ -24,8 +27,17 @@ Layout (counterparts in genomealignmenttools_tpu/):
                           (ops/pair_rescore.py)
   ops/rescore.py          TorchGenomeCache, TorchChainScorer in window or
                           pair mode (ops/rescore.py:159-555)
+  ops/band_batch.py       K3's wrapper, its plain version, BandExtBatch
+                          (ops/pallas_band.py)
+  ops/seed_extend.py      TorchGapAligner: GapAligner with the port's band
+                          batch (ops/seed_extend.py)
+  engines/repeat_filler.py, engines/drivers.py
+                          RepeatFiller and patchChain with TorchGapAligner
+                          (engines/repeat_filler.py, engines/drivers.py)
   cli/main.py             scoreChain / chainNet / chainCleaner with the torch
-                          scorer; every other command forwarded (cli/main.py)
+                          scorer, RepeatFiller / patchChain with the torch
+                          gap aligner; every other command forwarded
+                          (cli/main.py)
 """
 
 __version__ = "0.1.0"

@@ -2,8 +2,8 @@
 
 Same pattern as genomealignmenttools_tpu/native/__init__.py:31-58 (g++ at
 first use, loaded with ctypes), with nvcc for Hopper: each `csrc/*.cu`
-(K1 in rescore.cu, K2 in combine.cu) compiles to an object, one nvcc per
-source, all started together,
+(K1 in rescore.cu, K2 in combine.cu, K3 in band.cu) compiles to an object,
+one nvcc per source, all started together,
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
          -Xcompiler -fPIC -Xptxas -v -o build/<source>.o csrc/<source>.cu
@@ -131,6 +131,17 @@ def load_library() -> ctypes.CDLL:
     ]
     lib.gat_pair_combine_scratch.restype = ctypes.c_int64
     lib.gat_pair_combine_scratch.argtypes = [ctypes.c_int64]
+    lib.gat_band_ext.restype = ctypes.c_int
+    lib.gat_band_ext.argtypes = [
+        p, p, p, p,                           # a codes, a_off, b codes, b_off
+        ctypes.c_int64,                       # number of problems
+        ctypes.POINTER(ctypes.c_int32),       # 5x5 matrix (host)
+        ctypes.c_int, ctypes.c_int,           # global mode, gap open
+        ctypes.c_int, ctypes.c_int,           # gap extend, max insert
+        p, p,                                 # parents (uint8), centres
+        p, p,                                 # meta (int32), moves (uint8)
+        p,                                    # cudaStream_t
+    ]
     lib.gat_cuda_error_string.restype = ctypes.c_char_p
     lib.gat_cuda_error_string.argtypes = [ctypes.c_int]
     _lib = lib

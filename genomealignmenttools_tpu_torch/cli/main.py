@@ -1,19 +1,29 @@
-"""Command surface of the port: the rescoring tools with the torch scorer.
+"""Command surface of the port: the tools whose hot path runs on the device.
 
-Counterpart of genomealignmenttools_tpu/cli/main.py.  The three commands
-that touch the device - scoreChain, chainNet and chainCleaner - are parsed
-here with the same kent flags as the reference (cli/main.py:32-53,
-engines/chain_net.py:1122-1156, engines/chain_cleaner.py:1736-1787) and run
-the reference engines with `scorer_factory` set to the port's
-TorchChainScorer.  Every other command, and chainCleaner -mergeShards, which
-scores nothing, is handed unchanged to genomealignmenttools_tpu.cli.main.
+Counterpart of genomealignmenttools_tpu/cli/main.py.  Five commands are
+parsed here with the same flags as the reference and run on the port's
+device:
+
+- scoreChain, chainNet and chainCleaner (cli/main.py:32-53,
+  engines/chain_net.py:1122-1156, engines/chain_cleaner.py:1736-1787) run
+  the reference engines with `scorer_factory` set to the port's
+  TorchChainScorer;
+- RepeatFiller (engines/repeat_filler.py:331-404) and patchChain in its
+  6-argument in-process mode (cli/main.py:512-567) run the port's engine
+  entry points, whose gap aligner runs the band DP on the device (K3).
+
+Every other command is handed unchanged to genomealignmenttools_tpu.cli.main,
+and so are chainCleaner -mergeShards, which scores nothing, and patchChain's
+5-argument mode, which writes cluster job scripts that run the reference
+CLI.
 
 One flag is the port's own: -device=cuda|cuda:N|cpu (default cuda).  There
 is no silent fallback: without CUDA, the default raises.  The scoring mode
 comes from the environment, as in the reference CLI: GAT_RESCORE=pair for
 the resident pair path (unset, auto or pallas: K1's window path) and
 GAT_COMBINE=auto|device|host for where pair mode combines
-(ops/rescore.py).
+(ops/rescore.py).  GAT_BAND=host, the reference's host band batch, raises
+here: that path is the reference CLI's.
 
     python -m genomealignmenttools_tpu_torch.cli.main scoreChain \\
         in.chain t.2bit q.2bit out.chain -linearGap=loose [-device=cpu]
@@ -23,15 +33,18 @@ from __future__ import annotations
 
 import sys
 
-from genomealignmenttools_tpu.cli.main import _parse_kent_args
+from genomealignmenttools_tpu.cli.main import (_parse_kent_args,
+                                               _parse_lastz_parameters)
 from genomealignmenttools_tpu.cli.main import main as reference_main
+
+from ..ops.rescore import torch_scorer_factory
 
 
 def _out(path: str):
     return sys.stdout if path == "stdout" else open(path, "w")
 
 
-def cmd_score_chain(argv: list[str], factory) -> int:
+def cmd_score_chain(argv: list[str], device) -> int:
     from genomealignmenttools_tpu.engines.score_chain import score_chain_file
 
     pos, opts = _parse_kent_args(argv)
@@ -50,14 +63,14 @@ def cmd_score_chain(argv: list[str], factory) -> int:
         force_local_score="forceLocalScore" in opts,
         return_only_score="returnOnlyScore" in opts,
         return_only_score_and_coords="returnOnlyScoreAndCoords" in opts,
-        scorer_factory=factory,
+        scorer_factory=torch_scorer_factory(device),
         num_shards=int(opts.get("numShards", 1)),
         shard=int(opts.get("shard", 0)),
     )
     return 0
 
 
-def cmd_chain_net(argv: list[str], factory) -> int:
+def cmd_chain_net(argv: list[str], device) -> int:
     from genomealignmenttools_tpu.engines.chain_net import chain_net
 
     pos, opts = _parse_kent_args(argv)
@@ -81,7 +94,7 @@ def cmd_chain_net(argv: list[str], factory) -> int:
             q_2bit=opts.get("qNibDir"),
             linear_gap=opts.get("linearGap"),
             score_scheme=opts.get("scoreScheme"),
-            scorer_factory=factory,
+            scorer_factory=torch_scorer_factory(device),
             num_shards=int(opts.get("numShards", 1)),
             shard=int(opts.get("shard", 0)),
         )
@@ -107,7 +120,7 @@ _CLEANER_THRESHOLDS = {
 }
 
 
-def cmd_chain_cleaner(argv: list[str], factory) -> int:
+def cmd_chain_cleaner(argv: list[str], device) -> int:
     from genomealignmenttools_tpu.engines.chain_cleaner import clean_chains
 
     pos, opts = _parse_kent_args(argv)
@@ -129,7 +142,7 @@ def cmd_chain_cleaner(argv: list[str], factory) -> int:
         linear_gap=opts.get("linearGap", "loose"),
         score_scheme=opts.get("scoreScheme"),
         new_chain_id_dict_path=opts.get("newChainIDDict"),
-        scorer_factory=factory,
+        scorer_factory=torch_scorer_factory(device),
         num_shards=int(opts.get("numShards", 1)),
         shard=int(opts.get("shard", 0)),
         shard_out=opts.get("shardOut"),
@@ -142,11 +155,74 @@ def cmd_chain_cleaner(argv: list[str], factory) -> int:
     return 0
 
 
+def cmd_repeat_filler(argv: list[str], device) -> int:
+    from ..engines.repeat_filler import repeat_filler_main
+    return repeat_filler_main(argv, device)
+
+
+def cmd_patch_chain(argv: list[str], device) -> int:
+    """patchChain in 6-argument mode (cli/main.py:512-567); the 5-argument
+    job-script mode never gets here (see main)."""
+    from ..engines.drivers import patch_chain
+
+    pos, o = _parse_kent_args(argv)
+    if len(pos) != 6:
+        print("usage: patchChain in.chain t.2bit q.2bit t.sizes q.sizes "
+              "out.psl [-numShards=N -shard=N] [-device=cuda|cpu]\n"
+              "  [options: -chainMinScore=N -gapMinSizeT=N ... "
+              "-scoreScheme=HoxD55.q -lastzParameters=\"K=1500 L=2500 "
+              "W=5 Q=...\" -unmask -minIdentity=N -minEntropy=F "
+              "-windowSize=N]\n"
+              "  with 5 arguments it writes cluster job scripts, which run "
+              "the reference CLI (genomealignmenttools_tpu.cli.main)",
+              file=sys.stderr)
+        return 255
+    lz = _parse_lastz_parameters(o.get("lastzParameters", ""))
+    patch_chain(
+        pos[0], pos[1], pos[2], pos[3], pos[4],
+        sys.stdout if pos[5] == "stdout" else pos[5],
+        chain_min_score=int(o.get("chainMinScore", 0)),
+        chain_min_size_t=int(o.get("chainMinSizeT", 0)),
+        chain_min_size_q=int(o.get("chainMinSizeQ", 0)),
+        gap_min_t=int(o.get("gapMinSizeT", 10)),
+        gap_min_q=int(o.get("gapMinSizeQ", 10)),
+        gap_max_t=int(o.get("gapMaxSizeT", 100000)),
+        gap_max_q=int(o.get("gapMaxSizeQ", 100000)),
+        score_scheme=lz.get("score_scheme", o.get("scoreScheme")),
+        seed_len=lz.get("seed_len", int(o.get("seedLen", 5))),
+        hsp_threshold=lz.get("hsp_threshold",
+                             int(o.get("hspThreshold", 1500))),
+        gapped_threshold=lz.get("gapped_threshold",
+                                int(o.get("gappedThreshold", 2500))),
+        min_identity=float(o.get("minIdentity", 0)),
+        min_entropy=float(o.get("minEntropy", 0)),
+        window_size=int(o.get("windowSize", 0)),
+        num_shards=int(o.get("numShards", 1)),
+        shard_index=int(o.get("shard", 0)),
+        unmask="unmask" in o,
+        device=device)
+    return 0
+
+
 COMMANDS = {
     "scoreChain": cmd_score_chain,
     "chainNet": cmd_chain_net,
     "chainCleaner": cmd_chain_cleaner,
+    "RepeatFiller": cmd_repeat_filler,
+    "patchChain": cmd_patch_chain,
 }
+
+
+def _forwarded(rest: list[str]) -> bool:
+    """Runs of the reference CLI: other commands, chainCleaner -mergeShards
+    and patchChain's 5-argument job-script mode."""
+    if not rest or rest[0] not in COMMANDS:
+        return True
+    if rest[0] == "chainCleaner":
+        return any(a.startswith("-mergeShards") for a in rest)
+    if rest[0] == "patchChain":
+        return len(_parse_kent_args(rest[1:])[0]) == 5
+    return False
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -158,9 +234,7 @@ def main(argv: list[str] | None = None) -> int:
             device = a.split("=", 1)[1]
         else:
             rest.append(a)
-    if not rest or rest[0] not in COMMANDS or (
-            rest[0] == "chainCleaner"
-            and any(a.startswith("-mergeShards") for a in rest)):
+    if _forwarded(rest):
         return reference_main(rest)
     cmd, args = rest[0], []
     for a in rest[1:]:
@@ -178,8 +252,7 @@ def main(argv: list[str] | None = None) -> int:
             return 255
         else:
             args.append(a)
-    from ..ops.rescore import torch_scorer_factory
-    return COMMANDS[cmd](args, torch_scorer_factory(device))
+    return COMMANDS[cmd](args, device)
 
 
 if __name__ == "__main__":

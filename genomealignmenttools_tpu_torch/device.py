@@ -14,13 +14,15 @@ import torch
 # Traffic counters: bytes shipped host->device and device->host; device
 # passes (calls of a kernel wrapper, the plain CPU version included, and
 # pair-mode row-sum passes); combine_overflow counts pair-mode batches whose
-# int32 guard sent them to the host combine.
+# int32 guard sent them to the host combine; band_problems counts the
+# extension problems given to the band wrapper (K3 or its plain version),
+# band_out_of_band those whose traceback left the band.
 PERF = {"h2d_bytes": 0, "d2h_bytes": 0, "dispatches": 0,
-        "combine_overflow": 0}
+        "combine_overflow": 0, "band_problems": 0, "band_out_of_band": 0}
 
 # Kernel launch counters, one per hand-written kernel; a wrapper adds one
 # where it launches its kernel and nowhere else.
-LAUNCHES = {"rescore_chunks": 0, "pair_combine": 0}
+LAUNCHES = {"rescore_chunks": 0, "pair_combine": 0, "band_ext": 0}
 
 
 def perf_reset() -> None:

@@ -13,12 +13,15 @@ import numpy as np
 import pytest
 import torch
 
+from band_cases import N_KERNEL_CASES, kernel_cases, outcome, raw_inputs
 from combine_cases import combine_case, edge_chains, random_chains
 from genomealignmenttools_tpu.device.genome import Genome, revcomp_codes
 from genomealignmenttools_tpu.formats.chain import read_chains
 from genomealignmenttools_tpu.formats.gapcalc import gap_calc_from_file
 from genomealignmenttools_tpu.formats.scorematrix import score_scheme_default
+from genomealignmenttools_tpu.ops.band_ext import band_ext
 from genomealignmenttools_tpu_torch.device import LAUNCHES
+from genomealignmenttools_tpu_torch.ops import band_batch as bb
 from genomealignmenttools_tpu_torch.ops import pair_combine as pc
 from genomealignmenttools_tpu_torch.ops import window_rescore as wr
 from genomealignmenttools_tpu_torch.ops.pair_rescore import \
@@ -148,3 +151,45 @@ def test_torch_chain_scorer_pair_mode_cuda_matches_cpu(cuda_device,
     before = LAUNCHES["pair_combine"]
     assert on_card.score_chains(chains) == on_cpu.score_chains(chains)
     assert LAUNCHES["pair_combine"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(N_KERNEL_CASES))
+def test_band_ext_kernel_matches_plain(cuda_device, case):
+    """K3 == band_ext_plain on the card, meta and moves exactly, on the case
+    sets of chip_smoke.py's `kernel K3` phase."""
+    sets = kernel_cases()
+    assert len(sets) == N_KERNEL_CASES
+    _label, global_mode, gap_open, gap_extend, mi, probs = sets[case]
+    mat = bb.BandExtBatch(global_mode, score_scheme_default().char_matrix(),
+                          gap_open, gap_extend, mi, device=cuda_device).mat
+    args = raw_inputs(probs, cuda_device)
+    before = LAUNCHES["band_ext"]
+    meta, moves = bb.band_ext_cuda(*args, mat, global_mode, gap_open,
+                                   gap_extend, mi)
+    torch.cuda.synchronize()
+    assert LAUNCHES["band_ext"] == before + 1
+    assert meta.dtype == torch.int32 and meta.device == cuda_device
+    plain = bb.band_ext_plain(*args, mat, global_mode, gap_open, gap_extend,
+                              mi)
+    assert torch.equal(meta, plain[0]) and torch.equal(moves, plain[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("global_mode", [False, True])
+def test_band_ext_batch_cuda_matches_band_ext(cuda_device, global_mode):
+    cm = score_scheme_default().char_matrix()
+    probs = [p for s in kernel_cases() if s[1] == global_mode
+             for p in s[5][:12]]
+    for _label, g, gap_open, gap_extend, mi, _ in kernel_cases():
+        if g != global_mode:
+            continue
+        batch = bb.BandExtBatch(g, cm, gap_open, gap_extend, mi,
+                                device=cuda_device)
+        want = [outcome(lambda p=p: band_ext(g, cm, gap_open, gap_extend,
+                                             mi, *p)) for p in probs]
+        fine = [p for p, w in zip(probs, want) if isinstance(w, tuple)]
+        assert batch.run(fine) == [w for w in want if isinstance(w, tuple)]
+        for p, w in zip(probs, want):
+            if not isinstance(w, tuple):
+                assert outcome(lambda p=p: batch.run([p])) is w

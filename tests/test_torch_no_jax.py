@@ -3,8 +3,10 @@
 tests/conftest.py imports jax into every test process, so each check runs
 the port's CLI on the CPU in a fresh interpreter and then asserts that
 neither jax nor a module of the JAX package that needs it (pair_rescore,
-the Pallas kernels, the jax-backed rescore paths) was loaded.  The outputs
-are byte-compared with the goldens on the way.
+the Pallas kernels, among them pallas_band, the jax-backed rescore paths)
+was loaded.  The outputs are byte-compared with the goldens on the way
+(patchChain has none: it is held against the reference in
+tests/test_torch_gap_fill.py).
 """
 
 import os
@@ -41,12 +43,23 @@ runs = {
          "-verbose=0"],
         [("c.chain", "chainCleaner.out.chain"),
          ("c.bed", "chainCleaner.removedSuspects.bed")]),
+    "RepeatFiller": (
+        ["RepeatFiller", "-c", f("repeatfiller_input.chain"),
+         "-T2", f("target.2bit"), "-Q2", f("query.2bit"), "-o", o("rf.chain"),
+         "--refQuirks"],
+        [("rf.chain", "repeatfiller_reference_output.chain")]),
+    "patchChain": (
+        ["patchChain", f("repeatfiller_input.chain"), f("target.2bit"),
+         f("query.2bit"), f("target.chrom.sizes"), f("query.chrom.sizes"),
+         o("p.psl"), "-unmask"], []),
 }
 argv, pairs = runs[tool]
 if main(argv + ["-device=cpu"]) != 0:
     sys.exit("cli failed")
 if PERF["dispatches"] == 0:
     sys.exit("the port's scorer was not used")
+if argv[0] in ("RepeatFiller", "patchChain") and PERF["band_problems"] == 0:
+    sys.exit("the port's band batch was not used")
 for got, want in pairs:
     if open(o(got), "rb").read() != open(os.path.join(gold, want), "rb").read():
         sys.exit(f"{got} differs from {want}")
@@ -69,7 +82,8 @@ def _run(fixtures_dir, golden_dir, tmp_path, tool, **env):
 
 
 @pytest.mark.parametrize("tool", ["scoreChain", "chainNetRescore",
-                                  "chainCleaner"])
+                                  "chainCleaner", "RepeatFiller",
+                                  "patchChain"])
 def test_port_cli_runs_without_jax(fixtures_dir, golden_dir, tmp_path, tool):
     _run(fixtures_dir, golden_dir, tmp_path, tool)
 
