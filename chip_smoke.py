@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's rescoring and gap-filling paths once on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's rescoring, gap-filling and multi-device
+paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -62,9 +62,31 @@ non-zero:
               through K3 and through the plain version in K3's sub-batches:
               equal, CUDA-event ms of each, problem and column counts, peak
               device memory.
+12. filterChains - FilterChainsNetFilterNets through the port's CLI on the
+              fixtures, byte-identical to tests/golden; must launch K1.
+13. sharded - the chr1 chains through ShardedChainScorer on [cuda:0] * k,
+              k = 1, 2, 4, and on make_mesh(): every (global, local,
+              aliBases) equal to the host-native scores of phase 8, one K2
+              launch per non-empty shard, seconds per k;
+              ShardedBlockScorer at k = 4 on one (t, q, strand) group equal
+              to the single-device K1 sums.
+14. distributed - clean_chains_distributed on the cleaner workload as two
+              rank subprocesses on torch.distributed, gloo with both ranks
+              on cuda:0 (and nccl with one card per rank where there are
+              two cards): merged chain and bed byte-identical to a
+              single-process host-native chainCleaner run; wall seconds.
+15. profile - the port's scoreChain on chr1 (warm) with -profile=dir, twice:
+              each torch.profiler trace must name K1's kernel; summed CUDA
+              kernel time, the traced window and their ratio (device-busy
+              share).
+16. dryrun  - dryrun_multidevice([cuda:0] * 4): the sharded scorers, the
+              sharded cleaner, chainNet -rescore and RepeatFiller on the
+              fixtures, and the band DP split across devices, all exact.
 
-The line before the last is a JSON object {"kernels": [...]}; the last line
-is {"ok": true, "device": {"platform": "gpu", ...}}.  Imports nothing of jax.
+Phases run in this order.  The line before the last is a JSON object
+{"kernels": [...]} whose launches sum every path's counts (each set to 0
+just before the path and read just after); the last line is {"ok": true,
+"device": {"platform": "gpu", ...}}.  Imports nothing of jax.
 """
 
 from __future__ import annotations
@@ -566,8 +588,9 @@ def phase_resident(meta: dict, dev) -> dict:
     check(launches == 45, f"resident passes launched {K2} {launches} times")
     with open(meta["chain"], "rb") as f:
         table = parse_chain_table(f.read())
-    host = HostNativeScorer(scheme, gap_calc, t_gen, q_gen).score_table(
-        table)[np.asarray(order)]
+    host_rows = HostNativeScorer(scheme, gap_calc, t_gen, q_gen).score_table(
+        table)
+    host = host_rows[np.asarray(order)]
     check(np.array_equal(out0.astype(np.float64), host[:, :2]),
           "resident (global, local) differ from the host-native scores")
     check(pcs.score(jobs, nblocks) == [(g, loc, int(a)) for g, loc, a in
@@ -609,14 +632,16 @@ def phase_resident(meta: dict, dev) -> dict:
     print(f"[resident] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     return {"ms": min(ms["kernel"]), "plain_ms": min(ms["plain"]),
-            "max_abs_err": worst}
+            "max_abs_err": worst,
+            "host": [(g, loc, int(a)) for g, loc, a in host_rows.tolist()]}
 
 
 def phase_cleaner(tmp: str, n_scenarios: int = 2000,
-                  n_bulk: int = 30000) -> int:
+                  n_bulk: int = 30000) -> tuple[int, dict]:
     """chainNet -rescore on the chainCleaner bench workload (bench.py:
     555-558) through the port in window and pair mode, byte-compared with a
-    host-native run; returns K2's launches in the pair run."""
+    host-native run; returns K2's launches in the pair run and the
+    workload."""
     from genomealignmenttools_tpu.engines.chain_net import chain_net
     from genomealignmenttools_tpu.utils.bench_workload import \
         build_cleaner_workload
@@ -660,7 +685,7 @@ def phase_cleaner(tmp: str, n_scenarios: int = 2000,
           f"pair {counts['pair']}")
     print("[cleaner] wall seconds: "
           + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
-    return counts["pair"][K2]
+    return counts["pair"][K2], w
 
 def k3_against_plain(args, mat, global_mode, gap_open, gap_extend,
                      max_insert) -> tuple[int, "object"]:
@@ -727,9 +752,10 @@ def phase_kernel_k3(dev) -> int:
 
 
 def reference_cli(args: list[str]) -> float:
-    """The reference CLI in a subprocess with its host-native band batch
-    (GAT_BAND=host); returns its wall seconds."""
-    env = dict(os.environ, GAT_BAND="host",
+    """The reference CLI in a subprocess with its host-native paths
+    (GAT_BAND=host; JAX_PLATFORMS=cpu, so that jax, where installed, leaves
+    the card alone); returns its wall seconds."""
+    env = dict(os.environ, GAT_BAND="host", JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join(
                    [REPO] + [p for p in os.environ.get(
                        "PYTHONPATH", "").split(os.pathsep) if p]))
@@ -881,6 +907,292 @@ def phase_repeatfiller(tmp: str, dev, n_gaps: int = 600) -> dict:
             "ms": ms["kernel"], "plain_ms": ms["plain"]}
 
 
+def phase_sharded(meta: dict, host: list, dev) -> dict:
+    """The chr1 chains through ShardedChainScorer on ["cuda:0"] * k, k = 1,
+    2, 4, and on make_mesh() (every visible card), each equal to the
+    host-native scores; ShardedBlockScorer on one (t, q, strand) group at
+    k = 4 against the single-device K1 sums.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from genomealignmenttools_tpu.device.genome import open_genome
+    from genomealignmenttools_tpu.formats.chain import read_chains
+    from genomealignmenttools_tpu.formats.gapcalc import gap_calc_from_file
+    from genomealignmenttools_tpu.formats.scorematrix import \
+        score_scheme_default
+    from genomealignmenttools_tpu_torch.device import LAUNCHES, perf_reset
+    from genomealignmenttools_tpu_torch.parallel.mesh import (
+        ShardedBlockScorer, ShardedChainScorer, make_mesh)
+
+    scheme, gap_calc = score_scheme_default(), gap_calc_from_file("loose")
+    t_gen, q_gen = open_genome(meta["t2bit"]), open_genome(meta["q2bit"])
+    chains = read_chains(meta["chain"])
+    total = {KERNEL: 0, K2: 0}
+    meshes = [(f"[cuda:0] * {k}", [dev] * k) for k in (1, 2, 4)]
+    meshes.append((f"make_mesh() ({torch.cuda.device_count()} cards)",
+                   make_mesh()))
+    for label, mesh in meshes:
+        scorer = ShardedChainScorer(scheme, gap_calc, t_gen, q_gen, mesh)
+        cuts = scorer.cuts(chains)
+        secs = []
+        for _ in range(2):      # first: pack, upload, metadata; then warm
+            perf_reset()
+            t0 = time.monotonic()
+            got = scorer.score_chains(chains)
+            secs.append(time.monotonic() - t0)
+            launches = LAUNCHES[K2]
+            total[K2] += launches
+            check(got == host, f"ShardedChainScorer on {label} differs from "
+                               "the host-native scores")
+            check(launches == sum(b > a for a, b in zip(cuts, cuts[1:])),
+                  f"ShardedChainScorer on {label}: {launches} {K2} launches "
+                  f"for cuts {cuts}")
+        print(f"[sharded] ShardedChainScorer on {label}: {len(chains)} chains "
+              f"cut at {cuts}; every (global, local, aliBases) equals the "
+              f"host-native scores; {K2} launches {launches} per call; "
+              f"first call (pack, upload, metadata, pass) {secs[0]:.3f} s, "
+              f"warm {secs[1] * 1e3:.3f} ms")
+        del scorer
+
+    key = (chains[0].t_name, chains[0].q_name, chains[0].q_strand)
+    blocks = np.concatenate([c.blocks for c in chains
+                             if (c.t_name, c.q_name, c.q_strand) == key])
+    args = (t_gen.codes(key[0], "+"), q_gen.codes(key[1], key[2]), blocks)
+    lut = np.asarray(scheme.lut)
+    want = ShardedBlockScorer(lut, [dev]).block_scores(*args)
+    perf_reset()
+    t0 = time.monotonic()
+    got = ShardedBlockScorer(lut, [dev] * 4).block_scores(*args)
+    secs = time.monotonic() - t0
+    total[KERNEL] += LAUNCHES[KERNEL]
+    check(LAUNCHES[KERNEL] == 4, f"ShardedBlockScorer launched {KERNEL} "
+                                 f"{LAUNCHES[KERNEL]} times on 4 shards")
+    check(np.array_equal(got, want), "ShardedBlockScorer at k = 4 != the "
+                                     "single-device K1 sums")
+    print(f"[sharded] ShardedBlockScorer on [cuda:0] * 4, group {key}: "
+          f"{blocks.shape[0]} blocks equal to the single-device K1 sums; "
+          f"{KERNEL} launches 4; {secs:.3f} s (genome upload included)")
+    return total
+
+
+_RANK = r"""
+import json, sys, time
+init, rank, backend, device, w_json, out = sys.argv[1:7]
+w = json.loads(w_json)
+from genomealignmenttools_tpu.utils.verbose import set_verbosity
+from genomealignmenttools_tpu_torch.device import LAUNCHES
+from genomealignmenttools_tpu_torch.engines.chain_cleaner import \
+    clean_chains_distributed
+from genomealignmenttools_tpu_torch.parallel.distributed import \
+    init_distributed
+import torch, torch.distributed as dist
+set_verbosity(0)
+init_distributed(backend, init_method=init, world_size=2, rank=int(rank))
+t0 = time.monotonic()
+clean_chains_distributed(w["chain"], w["t2bit"], w["q2bit"], out + ".chain",
+                         out + ".bed", out + ".work",
+                         max_gather_bytes=int(w["max_bytes"]), device=device,
+                         t_sizes=w["t_sizes"], q_sizes=w["q_sizes"],
+                         linear_gap="loose")
+if device.startswith("cuda"):
+    torch.cuda.synchronize()
+secs = time.monotonic() - t0
+dist.destroy_process_group()
+print("RANK " + json.dumps({"rank": int(rank), "secs": secs,
+                            "launches": dict(LAUNCHES)}), flush=True)
+"""
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def two_ranks(backend: str, devices: list[str], w: dict, out: str) -> dict:
+    """clean_chains_distributed in two rank subprocesses; returns the wall
+    seconds, each rank's seconds and the summed launches.  Both ranks are
+    killed if either fails or the limit passes."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    init = f"tcp://127.0.0.1:{free_port()}"
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANK, init, str(r), backend, devices[r],
+         json.dumps(w), out], env=env, cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.monotonic() - t0
+    ranks = []
+    for r, (p, (stdout, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{backend} rank {r} exited {p.returncode}"
+                                 f": {err[-2000:]}")
+        line = [ln for ln in stdout.splitlines() if ln.startswith("RANK ")]
+        ranks.append(json.loads(line[-1][5:]))
+    launches = {k: sum(rk["launches"][k] for rk in ranks)
+                for k in ranks[0]["launches"]}
+    return {"wall": wall, "ranks": [rk["secs"] for rk in ranks],
+            "launches": launches}
+
+
+def phase_distributed(tmp: str, w: dict) -> dict:
+    """chainCleaner on the cleaner workload as two torch.distributed ranks
+    (clean_chains_distributed), gloo with both ranks on cuda:0, and nccl
+    with one card per rank where there are two cards; each merged output
+    byte-identical to a single-process host-native chainCleaner run (the
+    reference CLI in a subprocess: its native break loop imports the
+    reference's jax-backed pair_rescore).  Returns the summed launches of
+    the rank processes."""
+    import torch
+
+    o = lambda n: os.path.join(tmp, n)  # noqa: E731
+    host_s = reference_cli([
+        "chainCleaner", w["chain"], w["t2bit"], w["q2bit"], o("dc.host.chain"),
+        o("dc.host.bed"), "-tSizes=" + w["t_sizes"],
+        "-qSizes=" + w["q_sizes"], "-linearGap=loose", "-verbose=0"])
+    w = dict(w, max_bytes=2 * os.path.getsize(w["chain"]) + (1 << 20))
+    runs = [("gloo", ["cuda:0", "cuda:0"])]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("nccl", ["cuda:0", "cuda:1"]))
+    total: dict = {}
+    for backend, devices in runs:
+        res = two_ranks(backend, devices, w, o(f"dc.{backend}"))
+        for ext in ("chain", "bed"):
+            check(same_bytes(o(f"dc.{backend}.{ext}"), o(f"dc.host.{ext}")),
+                  f"two-rank {backend} chainCleaner .{ext} differs from the "
+                  f"single-process host-native run")
+        check(res["launches"][KERNEL] > 0, f"the {backend} ranks never "
+                                           f"launched {KERNEL}")
+        for k, v in res["launches"].items():
+            total[k] = total.get(k, 0) + v
+        print(f"[distributed] clean_chains_distributed, 2 ranks, {backend} "
+              f"on {devices}: chain and bed byte-identical to the "
+              f"single-process host-native run; wall {res['wall']:.3f} s "
+              f"(rank start-up included), ranks {[round(x, 3) for x in res['ranks']]}"
+              f" s inside clean_chains_distributed; launches "
+              f"{res['launches']}")
+    if torch.cuda.device_count() < 2:
+        print(f"[distributed] NCCL not exercised on this machine: "
+              f"{torch.cuda.device_count()} card")
+    print(f"[distributed] single-process host-native chainCleaner "
+          f"(reference CLI in a subprocess, start-up included) {host_s:.3f} s")
+    return total
+
+
+def short_name(kernel: str) -> str:
+    """A kernel's name without return type, namespace marker, template and
+    argument lists."""
+    name = kernel.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("<")[0].split("(")[0]
+
+
+def phase_profile(tmp: str, meta: dict) -> int:
+    """The port's scoreChain on chr1 (warm) under -profile=dir, twice (the
+    first run also starts the profiler's device tracing): each trace must
+    name K1; prints, for the second, the summed kernel time, the traced
+    window and their ratio, the device-busy share.  Returns K1's
+    launches."""
+    from genomealignmenttools_tpu_torch.utils.profiling import \
+        set_profile_dir
+
+    args = ["scoreChain", meta["chain"], meta["t2bit"], meta["q2bit"],
+            os.path.join(tmp, "chr1.prof.chain"), "-linearGap=loose"]
+    secs, launches = [], 0
+    for i in range(2):
+        prof = os.path.join(tmp, f"profile{i}")
+        t0 = time.monotonic()
+        try:
+            counts = run_cli(args + ["-profile=" + prof])
+        finally:
+            set_profile_dir(None)
+        secs.append(time.monotonic() - t0)
+        launches += counts[KERNEL]
+        check(counts[KERNEL] > 0, f"profiled scoreChain never launched "
+                                  f"{KERNEL}")
+        check(same_bytes(args[4], os.path.join(tmp, "chr1.dev.chain")),
+              "profiled chr1 scoreChain differs from the unprofiled run")
+        (name,) = os.listdir(prof)
+        with open(os.path.join(prof, name)) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        check(any(f"{KERNEL}_kernel" in e["name"] for e in kernels),
+              f"the trace names no {KERNEL}_kernel: "
+              f"{sorted({e['name'] for e in kernels})[:10]}")
+    busy = sum(e.get("dur", 0) for e in kernels)
+    window = (max(e["ts"] + e.get("dur", 0) for e in events)
+              - min(e["ts"] for e in events))
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    print(f"[profile] port scoreChain on chr1 (warm) with -profile, twice: "
+          f"{secs[0]:.3f} s (profiler start-up included), {secs[1]:.3f} s; "
+          f"{KERNEL} launches {launches}, outputs byte-identical; second "
+          f"trace {name} ({os.path.getsize(os.path.join(prof, name))} "
+          f"bytes, {len(events)} events, {len(kernels)} kernels)")
+    print(f"[profile] summed CUDA kernel time {busy / 1e3:.4f} ms in a traced "
+          f"window of {window / 1e3:.3f} ms: device-busy share "
+          f"{100 * busy / window:.4f}%; by kernel (ms) "
+          + ", ".join(f"{short_name(k)} {v / 1e3:.4f}" for k, v in
+                      sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
+    return launches
+
+
+def phase_filter_chains(tmp: str) -> int:
+    """FilterChainsNetFilterNets through the port's CLI on the fixtures,
+    byte-identical to tests/golden; must launch K1.  Returns the launches."""
+    f = lambda n: os.path.join(FIX, n)  # noqa: E731
+    o = lambda n: os.path.join(tmp, n)  # noqa: E731
+    t0 = time.monotonic()
+    counts = run_cli(["FilterChainsNetFilterNets",
+                      f("synthetic.scored.sorted.chain"),
+                      f("cleaner_input.net"), o("fc.chain"), o("fc.net"),
+                      f("target.2bit"), f("query.2bit"),
+                      f("target.chrom.sizes"), f("query.chrom.sizes"),
+                      "-minScore=50000,200000", "-minSizeT=1000,0",
+                      "-minSizeQ=1000,0"])
+    secs = time.monotonic() - t0
+    check(counts[KERNEL] > 0, f"FilterChainsNetFilterNets never launched "
+                              f"{KERNEL}")
+    for ext in ("chain", "net"):
+        check(same_bytes(o(f"fc.{ext}"), os.path.join(
+            GOLD, f"filterChains.filtered.{ext}")),
+              f"FilterChainsNetFilterNets .{ext} differs from the golden")
+    print(f"[filterChains] FilterChainsNetFilterNets: byte-identical to "
+          f"filterChains.filtered.chain and .net; {KERNEL} launches "
+          f"{counts[KERNEL]}; {secs:.3f} s")
+    return counts[KERNEL]
+
+
+def phase_dryrun(dev) -> dict:
+    """dryrun_multidevice on [cuda:0] * 4; returns its launches."""
+    import torch
+
+    from genomealignmenttools_tpu_torch.device import LAUNCHES, perf_reset
+    from genomealignmenttools_tpu_torch.parallel.dryrun import \
+        dryrun_multidevice
+    perf_reset()
+    t0 = time.monotonic()
+    dryrun_multidevice([dev] * 4)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    counts = dict(LAUNCHES)
+    check(all(v > 0 for v in counts.values()),
+          f"the dry run did not launch every kernel: {counts}")
+    print(f"[dryrun] dryrun_multidevice([cuda:0] * 4): sharded scorers, "
+          f"sharded cleaner, chainNet -rescore and RepeatFiller, split band "
+          f"DP all exact; launches {counts}; {secs:.3f} s")
+    return counts
+
+
 def main() -> int:
     name, smi = phase_device()
     import torch
@@ -890,29 +1202,41 @@ def main() -> int:
     worst_k2 = phase_kernel_k2(dev)
     worst_k3 = phase_kernel_k3(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # the phases of earlier slices first, so that their numbers are
+        # taken as before: no profiler started, no other process on the card
         phase_fixtures(tmp)
         entry, chr1 = phase_chr1(tmp, dev)
         resident = phase_resident(chr1, dev)
-        k2_launches = phase_cleaner(tmp)
+        k2_launches, cleaner = phase_cleaner(tmp)
         phase_gap_fixtures(tmp)
         rf = phase_repeatfiller(tmp, dev)
+        k1_fc = phase_filter_chains(tmp)
+        sharded = phase_sharded(chr1, resident.pop("host"), dev)
+        dist_launches = phase_distributed(tmp, cleaner)
+        k1_prof = phase_profile(tmp, chr1)
+    dry = phase_dryrun(dev)
     entry["max_abs_err"] = max(worst, entry["max_abs_err"])
+    entry["launches"] += (k1_fc + k1_prof + sharded[KERNEL]
+                          + dist_launches[KERNEL] + dry[KERNEL])
     k2_entry = {"name": K2, "route": "cuda",
                 "source": "genomealignmenttools_tpu_torch/csrc/combine.cu",
                 "replaces": "genomealignmenttools_tpu/ops/pallas_combine.py:112",
-                "launches": k2_launches,
+                "launches": (k2_launches + sharded[K2] + dist_launches[K2]
+                             + dry[K2]),
                 "max_abs_err": max(worst_k2, resident["max_abs_err"]),
                 "ms": resident["ms"], "plain_ms": resident["plain_ms"]}
     k3_entry = {"name": K3, "route": "cuda",
                 "source": "genomealignmenttools_tpu_torch/csrc/band.cu",
                 "replaces": "genomealignmenttools_tpu/ops/pallas_band.py:63",
-                "launches": rf["launches"],
+                "launches": rf["launches"] + dry[K3],
                 "max_abs_err": max(worst_k3, rf["max_abs_err"]),
                 "ms": rf["ms"], "plain_ms": rf["plain_ms"]}
+    # the engines import the jax-free parallel.distributed (shard_indices)
+    # for sharded runs; parallel.mesh is the reference's jax module
     jax_like = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib"))
                       or m.startswith("genomealignmenttools_tpu.ops.pa")
-                      or m.startswith("genomealignmenttools_tpu.parallel"))
+                      or m == "genomealignmenttools_tpu.parallel.mesh")
     check(not jax_like, f"jax-backed modules were loaded: {jax_like}")
     print("[jax] no jax and no jax-backed module of the reference was loaded")
     print(smi)

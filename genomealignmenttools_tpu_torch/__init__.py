@@ -32,12 +32,24 @@ Layout (counterparts in genomealignmenttools_tpu/):
   ops/seed_extend.py      TorchGapAligner: GapAligner with the port's band
                           batch (ops/seed_extend.py)
   engines/repeat_filler.py, engines/drivers.py
-                          RepeatFiller and patchChain with TorchGapAligner
+                          RepeatFiller and patchChain with TorchGapAligner,
+                          FilterChainsNetFilterNets with the torch scorer
                           (engines/repeat_filler.py, engines/drivers.py)
-  cli/main.py             scoreChain / chainNet / chainCleaner with the torch
-                          scorer, RepeatFiller / patchChain with the torch
-                          gap aligner; every other command forwarded
-                          (cli/main.py)
+  engines/chain_cleaner.py
+                          clean_chains_distributed on torch.distributed
+                          (engines/chain_cleaner.py:1842-1875)
+  parallel/mesh.py        make_mesh, ShardedBlockScorer, ShardedPairScorer,
+                          ShardedChainScorer (parallel/mesh.py)
+  parallel/distributed.py init_distributed, hosts_chips_mesh,
+                          host0_merge_text (parallel/distributed.py)
+  parallel/dryrun.py      dryrun_multidevice (__graft_entry__.py:40-349)
+  utils/profiling.py      trace (torch.profiler), device_timer
+                          (utils/profiling.py)
+  cli/main.py             scoreChain / chainNet / chainCleaner /
+                          FilterChainsNetFilterNets with the torch scorer,
+                          RepeatFiller / patchChain with the torch gap
+                          aligner, -profile=dir; every other command
+                          forwarded (cli/main.py)
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """Command surface of the port: the tools whose hot path runs on the device.
 
-Counterpart of genomealignmenttools_tpu/cli/main.py.  Five commands are
+Counterpart of genomealignmenttools_tpu/cli/main.py.  Six commands are
 parsed here with the same flags as the reference and run on the port's
 device:
 
@@ -8,6 +8,8 @@ device:
   engines/chain_net.py:1122-1156, engines/chain_cleaner.py:1736-1787) run
   the reference engines with `scorer_factory` set to the port's
   TorchChainScorer;
+- FilterChainsNetFilterNets (cli/main.py:570-588) runs the port's pipeline
+  entry point, whose chainNet -rescore scores with the same scorer;
 - RepeatFiller (engines/repeat_filler.py:331-404) and patchChain in its
   6-argument in-process mode (cli/main.py:512-567) run the port's engine
   entry points, whose gap aligner runs the band DP on the device (K3).
@@ -23,7 +25,9 @@ comes from the environment, as in the reference CLI: GAT_RESCORE=pair for
 the resident pair path (unset, auto or pallas: K1's window path) and
 GAT_COMBINE=auto|device|host for where pair mode combines
 (ops/rescore.py).  GAT_BAND=host, the reference's host band batch, raises
-here: that path is the reference CLI's.
+here: that path is the reference CLI's.  -profile=dir (or GAT_PROFILE=dir)
+wraps the command in a torch.profiler trace written into dir
+(utils/profiling.py), as the reference CLI wraps it in a jax one.
 
     python -m genomealignmenttools_tpu_torch.cli.main scoreChain \\
         in.chain t.2bit q.2bit out.chain -linearGap=loose [-device=cpu]
@@ -38,6 +42,7 @@ from genomealignmenttools_tpu.cli.main import (_parse_kent_args,
 from genomealignmenttools_tpu.cli.main import main as reference_main
 
 from ..ops.rescore import torch_scorer_factory
+from ..utils.profiling import set_profile_dir, trace
 
 
 def _out(path: str):
@@ -155,6 +160,31 @@ def cmd_chain_cleaner(argv: list[str], device) -> int:
     return 0
 
 
+def cmd_filter_chains_pipeline(argv: list[str], device) -> int:
+    from genomealignmenttools_tpu.engines.drivers import INT_MAX
+
+    from ..engines.drivers import filter_chains_net_filter_nets
+
+    pos, o = _parse_kent_args(argv)
+    if len(pos) != 8:
+        print("usage: FilterChainsNetFilterNets in.chain in.net out.chain "
+              "out.net t.2bit q.2bit t.sizes q.sizes -minScore=a,b "
+              "-minSizeT=a,b -minSizeQ=a,b [-keepSynNetsWithScore=N] "
+              "[-keepInvNetsWithScore=N] [-device=cuda|cpu]", file=sys.stderr)
+        return 255
+    filter_chains_net_filter_nets(
+        pos[0], pos[1], pos[2],
+        sys.stdout if pos[3] == "stdout" else pos[3],
+        pos[4], pos[5], pos[6], pos[7],
+        [int(x) for x in o.get("minScore", "0").split(",")],
+        [int(x) for x in o.get("minSizeT", "0").split(",")],
+        [int(x) for x in o.get("minSizeQ", "0").split(",")],
+        keep_syn_nets_with_score=int(o.get("keepSynNetsWithScore", INT_MAX)),
+        keep_inv_nets_with_score=int(o.get("keepInvNetsWithScore", INT_MAX)),
+        device=device)
+    return 0
+
+
 def cmd_repeat_filler(argv: list[str], device) -> int:
     from ..engines.repeat_filler import repeat_filler_main
     return repeat_filler_main(argv, device)
@@ -208,6 +238,7 @@ COMMANDS = {
     "scoreChain": cmd_score_chain,
     "chainNet": cmd_chain_net,
     "chainCleaner": cmd_chain_cleaner,
+    "FilterChainsNetFilterNets": cmd_filter_chains_pipeline,
     "RepeatFiller": cmd_repeat_filler,
     "patchChain": cmd_patch_chain,
 }
@@ -247,12 +278,11 @@ def main(argv: list[str] | None = None) -> int:
             from genomealignmenttools_tpu.utils.verbose import set_log_file
             set_log_file(a.split("=", 1)[1])
         elif a.startswith("-profile="):
-            print("-profile is not supported by the port yet",
-                  file=sys.stderr)
-            return 255
+            set_profile_dir(a.split("=", 1)[1])
         else:
             args.append(a)
-    return COMMANDS[cmd](args, device)
+    with trace(device=device):
+        return COMMANDS[cmd](args, device)
 
 
 if __name__ == "__main__":

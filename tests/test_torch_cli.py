@@ -105,9 +105,53 @@ def test_usage_and_unsupported_flags(fixtures_dir):
     assert port_main(["scoreChain", "only-one-arg", "-device=cpu"]) == 255
     assert port_main(["chainNet", "x", "-device=cpu"]) == 255
     assert port_main(["chainCleaner", "x", "-device=cpu"]) == 255
-    assert port_main(["scoreChain", "a", "b", "c", "d", "-profile=/x",
-                      "-device=cpu"]) == 255
+    assert port_main(["FilterChainsNetFilterNets", "x", "-device=cpu"]) == 255
     assert port_main(["noSuchTool"]) == 255
+
+
+def _filter_chains_args(fix, out):
+    f = lambda n: os.path.join(fix, n)  # noqa: E731
+    return [f("synthetic.scored.sorted.chain"), f("cleaner_input.net"),
+            os.path.join(out, "filtered.chain"),
+            os.path.join(out, "filtered.net"), f("target.2bit"),
+            f("query.2bit"), f("target.chrom.sizes"), f("query.chrom.sizes")]
+
+
+def _check_filter_chains(golden_dir, out):
+    for name in ("chain", "net"):
+        assert _read(os.path.join(out, f"filtered.{name}")) == _read(
+            os.path.join(golden_dir, f"filterChains.filtered.{name}"))
+
+
+def test_filter_chains_net_filter_nets_cli(fixtures_dir, golden_dir,
+                                           tmp_path):
+    """FilterChainsNetFilterNets runs in the port (chainNet -rescore
+    through the port's scorer), byte-identical to the goldens."""
+    perf_reset()
+    assert port_main(["FilterChainsNetFilterNets"]
+                     + _filter_chains_args(fixtures_dir, str(tmp_path))
+                     + ["-minScore=50000,200000", "-minSizeT=1000,0",
+                        "-minSizeQ=1000,0", "-device=cpu"]) == 0
+    assert PERF["dispatches"] > 0
+    _check_filter_chains(golden_dir, str(tmp_path))
+
+
+def test_filter_chains_net_filter_nets_work_dir(fixtures_dir, golden_dir,
+                                                tmp_path):
+    """The checkpointed variant: golden, and a rerun skips every stage."""
+    from genomealignmenttools_tpu_torch.engines.drivers import \
+        filter_chains_net_filter_nets
+    args = _filter_chains_args(fixtures_dir, str(tmp_path)) + [
+        [50000, 200000], [1000, 0], [1000, 0]]
+    work = str(tmp_path / "work")
+    perf_reset()
+    filter_chains_net_filter_nets(*args, work_dir=work, device="cpu")
+    assert PERF["dispatches"] > 0
+    _check_filter_chains(golden_dir, str(tmp_path))
+    perf_reset()
+    filter_chains_net_filter_nets(*args, work_dir=work, device="cpu")
+    assert PERF["dispatches"] == 0
+    _check_filter_chains(golden_dir, str(tmp_path))
 
 
 THRESHOLDS = [

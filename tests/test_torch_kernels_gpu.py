@@ -27,6 +27,9 @@ from genomealignmenttools_tpu_torch.ops import window_rescore as wr
 from genomealignmenttools_tpu_torch.ops.pair_rescore import \
     pair_chain_scores_plain
 from genomealignmenttools_tpu_torch.ops.rescore import TorchChainScorer
+from genomealignmenttools_tpu_torch.parallel.dryrun import dryrun_multidevice
+from genomealignmenttools_tpu_torch.parallel.mesh import (
+    ShardedBlockScorer, ShardedChainScorer, ShardedPairScorer)
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures")
@@ -193,3 +196,54 @@ def test_band_ext_batch_cuda_matches_band_ext(cuda_device, global_mode):
         for p, w in zip(probs, want):
             if not isinstance(w, tuple):
                 assert outcome(lambda p=p: batch.run([p])) is w
+
+
+def _fixture_genomes():
+    return (Genome(os.path.join(FIXTURES, "target.2bit")),
+            Genome(os.path.join(FIXTURES, "query.2bit")),
+            read_chains(os.path.join(FIXTURES, "synthetic.chain")))
+
+
+@pytest.mark.gpu
+def test_sharded_block_and_pair_scorers_cuda_match_single_device(
+        cuda_device):
+    lut = np.asarray(score_scheme_default().lut)
+    t_genome, q_genome, chains = _fixture_genomes()
+    blocks = np.concatenate([c.blocks for c in chains if c.t_name == "chrA"
+                             and c.q_name == "chrQ1" and c.q_strand == "+"])
+    args = (t_genome.codes("chrA"), q_genome.codes("chrQ1"), blocks)
+    before = LAUNCHES["rescore_chunks"]
+    got = ShardedBlockScorer(lut, [cuda_device] * 2).block_scores(*args)
+    assert LAUNCHES["rescore_chunks"] == before + 2
+    one = ShardedBlockScorer(lut, [cuda_device]).block_scores(*args)
+    cpu = ShardedBlockScorer(lut, ["cpu"]).block_scores(*args)
+    assert np.array_equal(got, one) and np.array_equal(got, cpu)
+    pair = ShardedPairScorer(lut, [cuda_device] * 2)
+    tiles, _, _ = pair.pack(*args)
+    assert np.array_equal(pair.chunk_scores(tiles),
+                          ShardedPairScorer(lut, ["cpu"]).chunk_scores(tiles))
+
+
+@pytest.mark.gpu
+def test_sharded_chain_scorer_cuda_matches_single_device(cuda_device,
+                                                         monkeypatch):
+    monkeypatch.setenv("GAT_COMBINE", "device")
+    scheme, gc = score_scheme_default(), gap_calc_from_file("loose")
+    t_genome, q_genome, chains = _fixture_genomes()
+    one = TorchChainScorer(scheme, gc, t_genome, q_genome,
+                           device=cuda_device, mode="pair")
+    before = LAUNCHES["pair_combine"]
+    want = one.score_chains(chains)
+    assert LAUNCHES["pair_combine"] == before + 1
+    before = LAUNCHES["pair_combine"]
+    got = ShardedChainScorer(scheme, gc, t_genome, q_genome,
+                             [cuda_device] * 2).score_chains(chains)
+    assert LAUNCHES["pair_combine"] == before + 2
+    assert got == want
+
+
+@pytest.mark.gpu
+def test_dryrun_multidevice_cuda(cuda_device):
+    before = dict(LAUNCHES)
+    dryrun_multidevice([cuda_device] * 2)
+    assert all(LAUNCHES[k] > before[k] for k in LAUNCHES)

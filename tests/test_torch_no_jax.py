@@ -6,7 +6,8 @@ neither jax nor a module of the JAX package that needs it (pair_rescore,
 the Pallas kernels, among them pallas_band, the jax-backed rescore paths)
 was loaded.  The outputs are byte-compared with the goldens on the way
 (patchChain has none: it is held against the reference in
-tests/test_torch_gap_fill.py).
+tests/test_torch_gap_fill.py); scoreChain with -profile must also write its
+trace.
 """
 
 import os
@@ -52,6 +53,19 @@ runs = {
         ["patchChain", f("repeatfiller_input.chain"), f("target.2bit"),
          f("query.2bit"), f("target.chrom.sizes"), f("query.chrom.sizes"),
          o("p.psl"), "-unmask"], []),
+    "FilterChainsNetFilterNets": (
+        ["FilterChainsNetFilterNets", f("synthetic.scored.sorted.chain"),
+         f("cleaner_input.net"), o("fc.chain"), o("fc.net"),
+         f("target.2bit"), f("query.2bit"), f("target.chrom.sizes"),
+         f("query.chrom.sizes"), "-minScore=50000,200000",
+         "-minSizeT=1000,0", "-minSizeQ=1000,0"],
+        [("fc.chain", "filterChains.filtered.chain"),
+         ("fc.net", "filterChains.filtered.net")]),
+    "scoreChainProfile": (
+        ["scoreChain", f("synthetic.chain"), f("target.2bit"),
+         f("query.2bit"), o("s.chain"), "-linearGap=loose",
+         "-profile=" + o("prof")],
+        [("s.chain", "scoreChain.loose.chain")]),
 }
 argv, pairs = runs[tool]
 if main(argv + ["-device=cpu"]) != 0:
@@ -60,6 +74,8 @@ if PERF["dispatches"] == 0:
     sys.exit("the port's scorer was not used")
 if argv[0] in ("RepeatFiller", "patchChain") and PERF["band_problems"] == 0:
     sys.exit("the port's band batch was not used")
+if tool == "scoreChainProfile" and not os.listdir(o("prof")):
+    sys.exit("-profile wrote no trace")
 for got, want in pairs:
     if open(o(got), "rb").read() != open(os.path.join(gold, want), "rb").read():
         sys.exit(f"{got} differs from {want}")
@@ -83,7 +99,8 @@ def _run(fixtures_dir, golden_dir, tmp_path, tool, **env):
 
 @pytest.mark.parametrize("tool", ["scoreChain", "chainNetRescore",
                                   "chainCleaner", "RepeatFiller",
-                                  "patchChain"])
+                                  "patchChain", "FilterChainsNetFilterNets",
+                                  "scoreChainProfile"])
 def test_port_cli_runs_without_jax(fixtures_dir, golden_dir, tmp_path, tool):
     _run(fixtures_dir, golden_dir, tmp_path, tool)
 
