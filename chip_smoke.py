@@ -12,10 +12,16 @@ non-zero:
               name and power limit.
 2. build    - build the kernels from genomealignmenttools_tpu_torch/csrc
               with nvcc (sm_90a, one nvcc per source, in parallel) and
-              print the build seconds and ptxas counts.
+              print the build seconds and ptxas counts.  (The native host
+              library builds from genomealignmenttools_tpu_torch/native
+              with g++ at its first use, in the next phase.)
 3. kernel   - K1 against its plain PyTorch version on the card, exact, on
               seeded random genomes with N runs, both strands, chunk lengths
-              0, 1, 255 and 256 and chunks that end at the genome's end.
+              0, 1, 255 and 256 and chunks that end at the genome's end;
+              then on tests/rescore_cases.py: every (t_off mod 16, q_off mod
+              16) pair at lengths 0, 1, 15, 16, 17, 255 and 256, chunks
+              ending at a genome's last byte, whole tensors and views that
+              start off a 16-byte boundary, and any byte >= 4 as N.
 4. kernel K2 - K2 against its plain version on the card, exact, and K2 +
               finish against the staged int64 combine, on the adversarial
               chain workloads of tests/combine_cases.py: the carry's edge
@@ -28,8 +34,9 @@ non-zero:
               problems up to 2,000 bases, sides of one base, both
               directions, a band that runs off `b`, out-of-band tracebacks
               in both modes and a band centre that leaves the state arrays;
-              then BandExtBatch on the card against numpy band_ext on a
-              subset, errors included.
+              BandExtBatch on the card against numpy band_ext on a subset,
+              errors included; then both modes at a max_insert of every
+              cells-per-lane count (1 to 8: every instantiation of K3).
 6. fixtures - scoreChain, chainNet -rescore and chainCleaner through the
               port's CLI on the card, byte-compared with tests/golden; each
               must launch K1.  Then the same in pair mode (GAT_RESCORE=pair
@@ -53,15 +60,16 @@ non-zero:
 10. gap fixtures - RepeatFiller --refQuirks through the port's CLI on the
               card, byte-identical to tests/golden; RepeatFiller in clean
               mode and patchChain (6 arguments, with and without -unmask),
-              byte-compared with the reference CLI run in a subprocess with
-              GAT_BAND=host; each port run must launch K3.
+              byte-compared with the port's host band batch (GAT_BAND=host,
+              in this process, no kernel); each port run must launch K3.
 11. repeatfiller - build_repeatfiller_workload(n_gaps=600), bench.py's
               depth, through the port's RepeatFiller (must launch K3) and
-              the host-native reference CLI, byte-compared, wall seconds of
-              both; then the workload's extension problems (align_prepare)
-              through K3 and through the plain version in K3's sub-batches:
-              equal, CUDA-event ms of each, problem and column counts, peak
-              device memory.
+              through its host band batch (GAT_BAND=host), byte-compared,
+              wall seconds of both; then the workload's extension problems
+              (align_prepare) through K3 and through the plain version in
+              K3's sub-batches: equal, CUDA-event ms of each, problem and
+              column counts, the columns and band cells K3 really ran and
+              the bound they give, peak device memory.
 12. filterChains - FilterChainsNetFilterNets through the port's CLI on the
               fixtures, byte-identical to tests/golden; must launch K1.
 13. sharded - the chr1 chains through ShardedChainScorer on [cuda:0] * k,
@@ -74,7 +82,8 @@ non-zero:
               rank subprocesses on torch.distributed, gloo with both ranks
               on cuda:0 (and nccl with one card per rank where there are
               two cards): merged chain and bed byte-identical to a
-              single-process host-native chainCleaner run; wall seconds.
+              single-process host-native chainCleaner run in this process
+              (GAT_RESCORE=hostnative); wall seconds.
 15. profile - the port's scoreChain on chr1 (warm) with -profile=dir, twice:
               each torch.profiler trace must name K1's kernel; summed CUDA
               kernel time, the traced window and their ratio (device-busy
@@ -83,10 +92,17 @@ non-zero:
               sharded cleaner, chainNet -rescore and RepeatFiller on the
               fixtures, and the band DP split across devices, all exact.
 
-Phases run in this order.  The line before the last is a JSON object
+Phases run in this order, each followed by its wall seconds.  The
+host-native oracle is the port's own all-host path (the mode `hostnative` of
+TorchChainScorer, the host band batch), which shares nothing with K1, K2, K3
+or the torch scorers and runs in this process.  Every kernel's time stands
+beside its bound: the bytes it must move at the published memory rate or its
+integer operations at the int32 rate, whichever takes longer, counted from
+this run's inputs.  The line before the last is a JSON object
 {"kernels": [...]} whose launches sum every path's counts (each set to 0
 just before the path and read just after); the last line is {"ok": true,
-"device": {"platform": "gpu", ...}}.  Imports nothing of jax.
+"device": {"platform": "gpu", ...}}.  Imports nothing of jax and nothing of
+the JAX package, and checks at the end that neither was loaded.
 """
 
 from __future__ import annotations
@@ -106,6 +122,15 @@ KERNEL = "rescore_chunks"
 K2 = "pair_combine"
 K3 = "band_ext"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published HBM3 bandwidth
+# 32-bit integer operations outside the tensor cores: 132 SMs x 64 lanes at
+# the clock behind the published 67 TFLOP/s of float32 (128 lanes, 2 a FMA)
+INT32_OPS_PER_S = 67e12 / 4
+# the integer operations band_ext needs for one band cell: the match state
+# (2 compares, 2 selects, 1 add), the left state (2 subtractions, 1 compare,
+# 1 select), the up state (open and extend terms, the running maximum and its
+# j*E offsets: 7), the three parent bits (5), the column best (2), the
+# matrix index (1)
+K3_OPS_PER_CELL = 25
 PAIR_ENV = {"GAT_RESCORE": "pair", "GAT_COMBINE": "device"}
 
 
@@ -172,7 +197,7 @@ def random_case(rng, t_len: int, q_len: int, n: int):
     the edge cases: lengths 0, 1, 255, 256 and chunks at the genome end."""
     import numpy as np
 
-    from genomealignmenttools_tpu.device.genome import revcomp_codes
+    from genomealignmenttools_tpu_torch.device.genome import revcomp_codes
     from genomealignmenttools_tpu_torch.ops.window_rescore import CHUNK
 
     def genome(size):
@@ -193,13 +218,24 @@ def random_case(rng, t_len: int, q_len: int, n: int):
     return t, q_plus, revcomp_codes(q_plus), t_off, q_off, length
 
 
+def roofline(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: every byte once at the published
+    memory rate, or the operations at the int32 rate, whichever is larger."""
+    by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * n_ops / INT32_OPS_PER_S
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
 def phase_kernel(dev) -> int:
     """Exact kernel == plain on the card; returns the max abs difference."""
     import numpy as np
     import torch
 
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from rescore_cases import alignment_case, direct_sums
     from genomealignmenttools_tpu_torch.ops import window_rescore as wr
-    from genomealignmenttools_tpu.formats.scorematrix import \
+    from genomealignmenttools_tpu_torch.formats.scorematrix import \
         score_scheme_default
 
     lut = wr.checked_lut(score_scheme_default().lut)
@@ -229,6 +265,40 @@ def phase_kernel(dev) -> int:
         raise RuntimeError("chip_smoke: out-of-range chunk was not refused")
     print(f"[kernel] {2 * len(length)} chunks, both strands: kernel == "
           f"plain exactly (max abs diff {worst})")
+    # every (t_off mod 16, q_off mod 16) pair at lengths 0, 1, 15, 16, 17,
+    # 255, 256, chunks ending at a genome's last byte; whole tensors, then
+    # views that start off a 16-byte boundary; then any byte >= 4 as N
+    t, q, t_off, q_off, length = alignment_case()
+    want = direct_sums(t, q, lut.numpy(), t_off, q_off, length)
+    for label, cut_t, cut_q in (("whole", 0, 0), ("offset views", 3, 9)):
+        keep = (t_off >= cut_t) & (q_off >= cut_q)
+        card = [torch.from_numpy(a).to(dev) for a in (
+            t, q, t_off[keep] - cut_t, q_off[keep] - cut_q, length[keep])]
+        card[0], card[1] = card[0][cut_t:], card[1][cut_q:]
+        got = wr.chunk_sums(card[0], card[1], lut, *card[2:])
+        plain = wr.chunk_sums_plain(card[0], card[1], lut, *card[2:])
+        torch.cuda.synchronize()
+        diff = max(int((got.to(torch.int64) - plain.to(torch.int64)).abs()
+                       .max()),
+                   int(np.abs(got.cpu().numpy().astype(np.int64)
+                              - want[keep]).max()))
+        worst = max(worst, diff)
+        check(diff == 0, f"kernel != plain on the alignment set ({label}, "
+                         f"max {diff})")
+    t, q = t.copy(), q.copy()
+    for codes in (t, q):
+        at = rng.integers(0, codes.shape[0], 3000)
+        codes[at] = rng.integers(4, 256, at.shape[0]).astype(np.uint8)
+    card = [torch.from_numpy(a).to(dev) for a in (t, q, t_off, q_off, length)]
+    got = wr.chunk_sums(card[0], card[1], lut, *card[2:])
+    diff = int(np.abs(got.cpu().numpy().astype(np.int64) - direct_sums(
+        t, q, lut.numpy(), t_off, q_off, length)).max())
+    worst = max(worst, diff)
+    check(diff == 0, f"kernel != definition with bytes >= 4 (max {diff})")
+    print(f"[kernel] {len(length)} chunks of every (t_off, q_off) alignment "
+          f"mod 16 at lengths 0, 1, 15, 16, 17, 255, 256, ending at the last "
+          f"byte, on whole tensors and offset views, any byte >= 4 as N: "
+          f"kernel == plain == definition exactly")
     return worst
 
 
@@ -365,46 +435,14 @@ def phase_fixtures(tmp: str) -> None:
                   + f"; {secs:.3f} s")
 
 
-class HostNativeScorer:
-    """The reference's all-host scoring (DeviceChainScorer in `hostnative`
-    mode, ops/rescore.py:319-324, 521-534) without the class that imports
-    jax: score_table is gat_subset_scores over full-cover jobs, and a
-    host-native `_dev` sends chainNet -rescore to its fused native sub-chain
-    scoring (chain_net.py:1006-1043).  score_chains and global_score, the
-    engine's other routes, score on the host with engines.scoring."""
-
-    def __init__(self, scheme, gap_calc, t_genome, q_genome):
-        import types
-
-        from genomealignmenttools_tpu.engines.scoring import ChainScorer
-        self.scheme, self.gap_calc = scheme, gap_calc
-        self.t_genome, self.q_genome = t_genome, q_genome
-        self._dev = types.SimpleNamespace(host_native=True)
-        self._host = ChainScorer(scheme, gap_calc, t_genome, q_genome)
-
-    def global_score(self, chain) -> float:
-        return self._host.global_score(chain)
-
-    def score_chains(self, chains: list) -> list:
-        return [self._host.global_and_local(c) for c in chains]
-
-    def score_table(self, table):
-        import numpy as np
-
-        from genomealignmenttools_tpu.native import get_lib
-        from genomealignmenttools_tpu.ops.rescore import (
-            lut25_of, native_subset_scores, table_row_code_ptrs)
-        n = len(table)
-        sel = np.arange(n)
-        t_ptrs, q_ptrs, keepalive = table_row_code_ptrs(
-            table, sel, self.t_genome, self.q_genome)
-        jobs = np.stack([sel, table.header[:, 1], table.header[:, 2]], 1)
-        out = native_subset_scores(
-            get_lib(), table.blocks, table.block_offsets, t_ptrs, q_ptrs,
-            lut25_of(self.scheme.lut), self.gap_calc,
-            np.ascontiguousarray(jobs, np.int64))
-        del keepalive
-        return out[:, :3].astype(np.float64)
+def host_native_factory():
+    """The port's all-host scorer, TorchChainScorer in the mode `hostnative`
+    (threaded C++ LUT sums, gat_subset_scores, the native combine): no
+    device, no kernel and no torch scorer, so it is the oracle of the card
+    runs, in this process."""
+    from genomealignmenttools_tpu_torch.ops.rescore import \
+        torch_scorer_factory
+    return torch_scorer_factory(mode="hostnative")
 
 
 def main_path_chunks(meta: dict, dev):
@@ -413,8 +451,8 @@ def main_path_chunks(meta: dict, dev):
     import numpy as np
     import torch
 
-    from genomealignmenttools_tpu.device.genome import open_genome
-    from genomealignmenttools_tpu.native.chain_io import parse_chain_table
+    from genomealignmenttools_tpu_torch.device.genome import open_genome
+    from genomealignmenttools_tpu_torch.native.chain_io import parse_chain_table
     from genomealignmenttools_tpu_torch.ops.window_rescore import chunk_blocks
     with open(meta["chain"], "rb") as f:
         table = parse_chain_table(f.read())
@@ -441,11 +479,11 @@ def phase_chr1(tmp: str, dev, t_size: int = 256_000_000,
     """Returns K1's kernels-line entry and the workload's paths."""
     import torch
 
-    from genomealignmenttools_tpu.engines.score_chain import score_chain_file
-    from genomealignmenttools_tpu.formats.scorematrix import \
+    from genomealignmenttools_tpu_torch.engines.score_chain import score_chain_file
+    from genomealignmenttools_tpu_torch.formats.scorematrix import \
         score_scheme_default
-    from genomealignmenttools_tpu.utils.bench_workload import build_workload
-    from genomealignmenttools_tpu.utils.profiling import (phase_acc_start,
+    from genomealignmenttools_tpu_torch.utils.bench_workload import build_workload
+    from genomealignmenttools_tpu_torch.utils.profiling import (phase_acc_start,
                                                          phase_acc_stop)
     from genomealignmenttools_tpu_torch.ops import window_rescore as wr
 
@@ -482,7 +520,7 @@ def phase_chr1(tmp: str, dev, t_size: int = 256_000_000,
     host_out = os.path.join(tmp, "chr1.host.chain")
     t0 = time.monotonic()
     score_chain_file(meta["chain"], meta["t2bit"], meta["q2bit"], host_out,
-                     linear_gap="loose", scorer_factory=HostNativeScorer)
+                     linear_gap="loose", scorer_factory=host_native_factory())
     host_s = time.monotonic() - t0
     check(same_bytes(args[4], host_out),
           "chr1 port scoreChain differs from the host-native run")
@@ -510,15 +548,29 @@ def phase_chr1(tmp: str, dev, t_size: int = 256_000_000,
         t = sum(cuda_ms(lambda j=j: fn(j[0], j[1], lut, *j[2:]), reps)
                 for j in jobs)
         ms.setdefault(label, []).append(t)
+    # the bound: each code byte of both genomes once, 20 descriptor bytes
+    # in and 4 out a chunk; one lookup and one add a base
+    n_bases = sum(int(j[4].sum()) for j in jobs)
+    n_bytes = 2 * n_bases + 24 * n_chunks
+    bound = roofline(n_bytes, 2 * n_bases)
     print(f"[chr1] K1 at main-path shapes ({len(jobs)} launches, {n_chunks} "
           f"chunks, {mb:.3f} Mb): kernel {ms['kernel']} ms, plain "
           f"{ms['plain']} ms, wrapper with bounds check {ms['wrapper']} ms; "
           f"kernel == plain exactly")
+    print(f"[chr1] K1 bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}"
+          f": {n_bytes} bytes ({2 * n_bases} of codes, {24 * n_chunks} of "
+          f"descriptors and sums) at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
+          f"{2 * n_bases} integer operations at "
+          f"{INT32_OPS_PER_S / 1e12:.2f} T/s; the kernel reaches "
+          f"{100 * bound['bound_ms'] / min(ms['kernel']):.1f}% of it; "
+          f"library call: none (a ragged gather, a LUT and a segment sum "
+          f"are several PyTorch calls: the plain version)")
     entry = {"name": KERNEL, "route": "cuda",
              "source": "genomealignmenttools_tpu_torch/csrc/rescore.cu",
              "replaces": "genomealignmenttools_tpu/ops/pallas_rescore.py:43",
              "launches": launches, "max_abs_err": worst,
-             "ms": min(ms["kernel"]), "plain_ms": min(ms["plain"])}
+             "ms": min(ms["kernel"]), "plain_ms": min(ms["plain"]),
+             **bound, "library_ms": None}
     return entry, meta
 
 
@@ -534,13 +586,13 @@ def phase_resident(meta: dict, dev) -> dict:
     import numpy as np
     import torch
 
-    from genomealignmenttools_tpu.device.genome import open_genome
-    from genomealignmenttools_tpu.formats.chain import read_chains
-    from genomealignmenttools_tpu.formats.gapcalc import gap_calc_from_file
-    from genomealignmenttools_tpu.formats.scorematrix import \
+    from genomealignmenttools_tpu_torch.device.genome import open_genome
+    from genomealignmenttools_tpu_torch.formats.chain import read_chains
+    from genomealignmenttools_tpu_torch.formats.gapcalc import gap_calc_from_file
+    from genomealignmenttools_tpu_torch.formats.scorematrix import \
         score_scheme_default
-    from genomealignmenttools_tpu.native.chain_io import parse_chain_table
-    from genomealignmenttools_tpu.utils.profiling import (phase_acc_start,
+    from genomealignmenttools_tpu_torch.native.chain_io import parse_chain_table
+    from genomealignmenttools_tpu_torch.utils.profiling import (phase_acc_start,
                                                          phase_acc_stop)
     from genomealignmenttools_tpu_torch.device import LAUNCHES, perf_reset
     from genomealignmenttools_tpu_torch.ops import pair_combine as pc
@@ -588,8 +640,8 @@ def phase_resident(meta: dict, dev) -> dict:
     check(launches == 45, f"resident passes launched {K2} {launches} times")
     with open(meta["chain"], "rb") as f:
         table = parse_chain_table(f.read())
-    host_rows = HostNativeScorer(scheme, gap_calc, t_gen, q_gen).score_table(
-        table)
+    host_rows = host_native_factory()(scheme, gap_calc, t_gen,
+                                      q_gen).score_table(table)
     host = host_rows[np.asarray(order)]
     check(np.array_equal(out0.astype(np.float64), host[:, :2]),
           "resident (global, local) differ from the host-native scores")
@@ -629,10 +681,19 @@ def phase_resident(meta: dict, dev) -> dict:
           f"{-(-s.numel() // pc.TILE)} tiles): kernel {ms['kernel']} ms, "
           f"plain {ms['plain']} ms; kernel == plain exactly; the int8 row "
           f"sums (torch) {row_ms:.4f} ms")
+    # the bound: s, bias and flags read, c and w written, 4 bytes each a
+    # chunk; three scans of about two operations a chunk
+    bound = roofline(20 * s.numel(), 6 * s.numel())
+    print(f"[resident] K2 bound {bound['bound_ms']:.4f} ms by "
+          f"{bound['bound_by']}: {20 * s.numel()} bytes at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; the kernel reaches "
+          f"{100 * bound['bound_ms'] / min(ms['kernel']):.1f}% of it; library "
+          f"call: none (three dependent segmented scans; torch.cumsum and "
+          f"cummax are not segmented)")
     print(f"[resident] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     return {"ms": min(ms["kernel"]), "plain_ms": min(ms["plain"]),
-            "max_abs_err": worst,
+            "max_abs_err": worst, **bound, "library_ms": None,
             "host": [(g, loc, int(a)) for g, loc, a in host_rows.tolist()]}
 
 
@@ -642,8 +703,8 @@ def phase_cleaner(tmp: str, n_scenarios: int = 2000,
     555-558) through the port in window and pair mode, byte-compared with a
     host-native run; returns K2's launches in the pair run and the
     workload."""
-    from genomealignmenttools_tpu.engines.chain_net import chain_net
-    from genomealignmenttools_tpu.utils.bench_workload import \
+    from genomealignmenttools_tpu_torch.engines.chain_net import chain_net
+    from genomealignmenttools_tpu_torch.utils.bench_workload import \
         build_cleaner_workload
 
     t0 = time.monotonic()
@@ -659,7 +720,8 @@ def phase_cleaner(tmp: str, n_scenarios: int = 2000,
                 open(out(tag, "q"), "w") as q_net:
             chain_net(w["chain"], w["t_sizes"], w["q_sizes"], t_net, q_net,
                       rescore=True, t_2bit=w["t2bit"], q_2bit=w["q2bit"],
-                      linear_gap="loose", scorer_factory=HostNativeScorer)
+                      linear_gap="loose",
+                      scorer_factory=host_native_factory())
         return time.monotonic() - t0
 
     secs = {"host-native (cold: decodes both genomes)":
@@ -709,10 +771,11 @@ def phase_kernel_k3(dev) -> int:
     the card == numpy band_ext on a subset; returns the max abs
     difference."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
-    from band_cases import kernel_cases, outcome, raw_inputs
-    from genomealignmenttools_tpu.formats.scorematrix import \
+    from band_cases import (instantiation_cases, kernel_cases, outcome,
+                            raw_inputs)
+    from genomealignmenttools_tpu_torch.formats.scorematrix import \
         score_scheme_default
-    from genomealignmenttools_tpu.ops.band_ext import band_ext
+    from genomealignmenttools_tpu_torch.ops.band_ext import band_ext
     from genomealignmenttools_tpu_torch.ops import band_batch as bb
 
     cm = score_scheme_default().char_matrix()
@@ -746,26 +809,43 @@ def phase_kernel_k3(dev) -> int:
               f"exactly")
     check({(False, 1), (True, 1), (True, 2)} <= errs,
           f"the K3 cases lost an error case: {sorted(errs)}")
+    # one max_insert for every cells-per-lane count: every instantiation
+    seen = set()
+    for label, g, gap_open, gap_extend, mi, probs in instantiation_cases():
+        batch = bb.BandExtBatch(g, cm, gap_open, gap_extend, mi, device=dev)
+        diff, meta = k3_against_plain(raw_inputs(probs, dev), batch.mat, g,
+                                      gap_open, gap_extend, mi)
+        worst = max(worst, diff)
+        check(diff == 0, f"K3 != plain on {label} (max {diff})")
+        seen.add(bb.parent_layout(mi)[0])
+        print(f"[kernel K3] {label}: {meta.shape[0]} problems, "
+              f"{int((meta[:, 0] != 0).sum())} aligned: kernel == plain "
+              f"exactly")
+    check(seen == set(range(1, 9)), f"instantiations run: {sorted(seen)}")
     print(f"[kernel K3] BandExtBatch on the card == numpy band_ext on "
           f"{n_oracle} problems (tuples, AssertionError and IndexError)")
     return worst
 
 
-def reference_cli(args: list[str]) -> float:
-    """The reference CLI in a subprocess with its host-native paths
-    (GAT_BAND=host; JAX_PLATFORMS=cpu, so that jax, where installed, leaves
-    the card alone); returns its wall seconds."""
-    env = dict(os.environ, GAT_BAND="host", JAX_PLATFORMS="cpu",
-               PYTHONPATH=os.pathsep.join(
-                   [REPO] + [p for p in os.environ.get(
-                       "PYTHONPATH", "").split(os.pathsep) if p]))
-    t0 = time.monotonic()
-    res = subprocess.run(
-        [sys.executable, "-m", "genomealignmenttools_tpu.cli.main", *args],
-        env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
-    secs = time.monotonic() - t0
-    check(res.returncode == 0, f"reference CLI {args[0]} exited "
-          f"{res.returncode}: {res.stderr[-2000:]}")
+HOST_ENV = {"GAT_RESCORE": "hostnative", "GAT_BAND": "host"}
+
+
+def host_cli(args: list[str]) -> float:
+    """The port's CLI on its all-host paths, in this process: the host-native
+    scorer and the host band batch, named by HOST_ENV, which share nothing
+    with K1, K2, K3 or the torch scorers.  No -device: those paths resolve
+    none.  Must launch no kernel; returns its wall seconds."""
+    from genomealignmenttools_tpu_torch.cli.main import main
+    from genomealignmenttools_tpu_torch.device import LAUNCHES, perf_reset
+    with environ(HOST_ENV):
+        perf_reset()
+        t0 = time.monotonic()
+        rc = main(args)
+        secs = time.monotonic() - t0
+        counts = dict(LAUNCHES)
+    check(rc == 0, f"host-native CLI {args[0]} exited {rc}")
+    check(not any(counts.values()),
+          f"host-native CLI {args[0]} launched a kernel: {counts}")
     return secs
 
 
@@ -790,12 +870,12 @@ def phase_gap_fixtures(tmp: str) -> None:
             want = os.path.join(GOLD, "repeatfiller_reference_output.chain")
         else:
             want = o("ref." + name)
-            reference_cli(argv + [want] + extra)
+            host_cli(argv + [want] + extra)
         check(same_bytes(o(name), want), f"{label}: {o(name)} != {want}")
         print(f"[gap fixtures] {label}: byte-identical to "
               f"{os.path.basename(want)}"
-              + ("" if want.startswith(GOLD) else " (reference CLI, "
-                 "GAT_BAND=host)")
+              + ("" if want.startswith(GOLD) else " (the port's host band "
+                 "batch, GAT_BAND=host, in process)")
               + f"; {K3} launches {counts[K3]}; {secs:.3f} s")
 
 
@@ -803,18 +883,17 @@ def phase_repeatfiller(tmp: str, dev, n_gaps: int = 600) -> dict:
     """RepeatFiller at bench.py's depth; returns K3's kernels-line numbers."""
     import torch
 
-    from genomealignmenttools_tpu.device.genome import open_genome
-    from genomealignmenttools_tpu.engines.repeat_filler import (
+    from genomealignmenttools_tpu_torch.device.genome import open_genome
+    from genomealignmenttools_tpu_torch.engines.repeat_filler import (
         _gap_job_regions, harvest_gap_jobs)
-    from genomealignmenttools_tpu.formats.scorematrix import \
+    from genomealignmenttools_tpu_torch.formats.scorematrix import \
         score_scheme_default
-    from genomealignmenttools_tpu.utils.bench_workload import \
+    from genomealignmenttools_tpu_torch.utils.bench_workload import \
         build_repeatfiller_workload
-    from genomealignmenttools_tpu.utils.profiling import (phase_acc_start,
+    from genomealignmenttools_tpu_torch.utils.profiling import (phase_acc_start,
                                                          phase_acc_stop)
     from genomealignmenttools_tpu_torch.ops import band_batch as bb
-    from genomealignmenttools_tpu_torch.ops.seed_extend import \
-        TorchGapAligner
+    from genomealignmenttools_tpu_torch.ops.seed_extend import GapAligner
 
     t0 = time.monotonic()
     w = build_repeatfiller_workload(os.path.join(tmp, "rf"), n_gaps=n_gaps)
@@ -832,10 +911,9 @@ def phase_repeatfiller(tmp: str, dev, n_gaps: int = 600) -> dict:
     phases = phase_acc_stop()
     check(counts[K3] > 0, f"{n_gaps}-gap RepeatFiller never launched {K3}")
     peak_cli = torch.cuda.max_memory_allocated()
-    host_s = reference_cli(args + [host_out])
+    host_s = host_cli(args + [host_out])
     check(same_bytes(port_out, host_out),
           f"{n_gaps}-gap RepeatFiller differs from the host-native run")
-    start_s = reference_cli(["RepeatFiller", "-h"])
     band_s = sum(v for k, v in phases.items() if k.startswith("band: "))
     print(f"[repeatfiller] port RepeatFiller {port_s:.3f} s ({K3} launches "
           f"{counts[K3]}, peak device memory {peak_cli / 2**30:.3f} GiB); "
@@ -843,14 +921,13 @@ def phase_repeatfiller(tmp: str, dev, n_gaps: int = 600) -> dict:
           + ", ".join(f"{k} {v:.4f} s" for k, v in phases.items())
           + f"; the rest (seeds, HSP scan, chaining, splice) "
           f"{port_s - band_s:.3f} s")
-    print(f"[repeatfiller] host-native reference CLI (subprocess, "
-          f"GAT_BAND=host) {host_s:.3f} s, of which interpreter start-up "
-          f"and imports (RepeatFiller -h) {start_s:.3f} s; byte-identical "
-          f"to the port's output")
+    print(f"[repeatfiller] host-native RepeatFiller (the port's host band "
+          f"batch, GAT_BAND=host, in process, genomes decoded) "
+          f"{host_s:.3f} s; byte-identical to the port's output")
 
     # the workload's extension problems, as _run_gap_jobs batches them
     scheme = score_scheme_default()
-    aligner = TorchGapAligner(
+    aligner = GapAligner(
         scheme.lut, seed_len=6, hsp_threshold=1500, gapped_threshold=2000,
         gap_open=scheme.gap_open, gap_extend=scheme.gap_extend,
         char_matrix=scheme.char_matrix(), device=dev)
@@ -869,8 +946,8 @@ def phase_repeatfiller(tmp: str, dev, n_gaps: int = 600) -> dict:
     batch = aligner._band_batch()
     _, todo = bb.orient(probs, batch.a_max)
     band = 2 * batch.max_insert + 1
-    ranges = bb.sub_batches([len(t[1]) for t in todo], band, False,
-                            bb.PARENT_BUDGET)
+    ranges = bb.sub_batches([len(t[1]) for t in todo], batch.max_insert,
+                            False, bb.PARENT_BUDGET)
     a_cols = sum(len(t[1]) for t in todo)
     b_bases = sum(len(t[2]) for t in todo)
     print(f"[repeatfiller] {len(jobs)} gaps -> {len(probs)} extension "
@@ -881,6 +958,7 @@ def phase_repeatfiller(tmp: str, dev, n_gaps: int = 600) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     worst, ms = 0, {"kernel": 0.0, "plain": 0.0}
+    columns = cells = n_moves = 0
     call = lambda fn, a: fn(*a, batch.mat, False, batch.gap_open,  # noqa
                             batch.gap_extend, batch.max_insert)
     for lo, hi in ranges:
@@ -895,6 +973,9 @@ def phase_repeatfiller(tmp: str, dev, n_gaps: int = 600) -> dict:
         ms["kernel"] += cuda_ms(lambda a=a: call(bb._launch_kernel, a), 3)
         got = call(bb._launch_kernel, a)
         torch.cuda.synchronize()
+        work = bb.LAST_WORK[K3].sum(0).tolist()
+        columns, cells = columns + work[0], cells + work[1]
+        n_moves += int(got[0][:, 4].sum())
         worst = max(worst, *(int((g.to(torch.int64) - p.to(torch.int64))
                                  .abs().max()) for g, p in zip(got, plain)))
         del plain, got
@@ -903,8 +984,21 @@ def phase_repeatfiller(tmp: str, dev, n_gaps: int = 600) -> dict:
           f"{ms['kernel']:.3f} ms, plain {ms['plain']:.3f} ms (summed over "
           f"{len(ranges)} sub-batches); kernel == plain exactly; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    # the bound, over the columns these problems ran before their x-drop:
+    # a code byte read and half a parent byte written a cell, a code byte and
+    # a band centre a column, the moves; K3_OPS_PER_CELL operations a cell
+    n_bytes = 1.5 * cells + 5 * columns + n_moves + 48 * len(todo)
+    bound = roofline(n_bytes, K3_OPS_PER_CELL * cells)
+    print(f"[repeatfiller] K3 bound {bound['bound_ms']:.4f} ms by "
+          f"{bound['bound_by']}: {columns} of {a_cols} columns run, {cells} "
+          f"band cells, {K3_OPS_PER_CELL} integer operations a cell at "
+          f"{INT32_OPS_PER_S / 1e12:.2f} T/s ({int(n_bytes)} bytes would take "
+          f"{1e3 * n_bytes / HBM_BYTES_PER_S:.4f} ms); the kernel reaches "
+          f"{100 * bound['bound_ms'] / ms['kernel']:.1f}% of it; library "
+          f"call: none (a wandering-band DP with traceback)")
     return {"launches": counts[K3], "max_abs_err": worst,
-            "ms": ms["kernel"], "plain_ms": ms["plain"]}
+            "ms": ms["kernel"], "plain_ms": ms["plain"], **bound,
+            "library_ms": None}
 
 
 def phase_sharded(meta: dict, host: list, dev) -> dict:
@@ -915,10 +1009,10 @@ def phase_sharded(meta: dict, host: list, dev) -> dict:
     import numpy as np
     import torch
 
-    from genomealignmenttools_tpu.device.genome import open_genome
-    from genomealignmenttools_tpu.formats.chain import read_chains
-    from genomealignmenttools_tpu.formats.gapcalc import gap_calc_from_file
-    from genomealignmenttools_tpu.formats.scorematrix import \
+    from genomealignmenttools_tpu_torch.device.genome import open_genome
+    from genomealignmenttools_tpu_torch.formats.chain import read_chains
+    from genomealignmenttools_tpu_torch.formats.gapcalc import gap_calc_from_file
+    from genomealignmenttools_tpu_torch.formats.scorematrix import \
         score_scheme_default
     from genomealignmenttools_tpu_torch.device import LAUNCHES, perf_reset
     from genomealignmenttools_tpu_torch.parallel.mesh import (
@@ -979,7 +1073,7 @@ _RANK = r"""
 import json, sys, time
 init, rank, backend, device, w_json, out = sys.argv[1:7]
 w = json.loads(w_json)
-from genomealignmenttools_tpu.utils.verbose import set_verbosity
+from genomealignmenttools_tpu_torch.utils.verbose import set_verbosity
 from genomealignmenttools_tpu_torch.device import LAUNCHES
 from genomealignmenttools_tpu_torch.engines.chain_cleaner import \
     clean_chains_distributed
@@ -1047,14 +1141,13 @@ def phase_distributed(tmp: str, w: dict) -> dict:
     """chainCleaner on the cleaner workload as two torch.distributed ranks
     (clean_chains_distributed), gloo with both ranks on cuda:0, and nccl
     with one card per rank where there are two cards; each merged output
-    byte-identical to a single-process host-native chainCleaner run (the
-    reference CLI in a subprocess: its native break loop imports the
-    reference's jax-backed pair_rescore).  Returns the summed launches of
-    the rank processes."""
+    byte-identical to a single-process host-native chainCleaner run in this
+    process (GAT_RESCORE=hostnative: the native break loop and prescore).
+    Returns the summed launches of the rank processes."""
     import torch
 
     o = lambda n: os.path.join(tmp, n)  # noqa: E731
-    host_s = reference_cli([
+    host_s = host_cli([
         "chainCleaner", w["chain"], w["t2bit"], w["q2bit"], o("dc.host.chain"),
         o("dc.host.bed"), "-tSizes=" + w["t_sizes"],
         "-qSizes=" + w["q_sizes"], "-linearGap=loose", "-verbose=0"])
@@ -1083,7 +1176,7 @@ def phase_distributed(tmp: str, w: dict) -> dict:
         print(f"[distributed] NCCL not exercised on this machine: "
               f"{torch.cuda.device_count()} card")
     print(f"[distributed] single-process host-native chainCleaner "
-          f"(reference CLI in a subprocess, start-up included) {host_s:.3f} s")
+          f"(GAT_RESCORE=hostnative, in process) {host_s:.3f} s")
     return total
 
 
@@ -1193,28 +1286,37 @@ def phase_dryrun(dev) -> dict:
     return counts
 
 
+def clocked(fn, *args):
+    """fn(*args), with the phase's wall seconds on a line of their own."""
+    t0 = time.monotonic()
+    out = fn(*args)
+    print(f"[time] {fn.__name__}: {time.monotonic() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
+    t_start = time.monotonic()
     name, smi = phase_device()
     import torch
     dev = torch.device("cuda", 0)
-    phase_build()
-    worst = phase_kernel(dev)
-    worst_k2 = phase_kernel_k2(dev)
-    worst_k3 = phase_kernel_k3(dev)
+    clocked(phase_build)
+    worst = clocked(phase_kernel, dev)
+    worst_k2 = clocked(phase_kernel_k2, dev)
+    worst_k3 = clocked(phase_kernel_k3, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # the phases of earlier slices first, so that their numbers are
         # taken as before: no profiler started, no other process on the card
-        phase_fixtures(tmp)
-        entry, chr1 = phase_chr1(tmp, dev)
-        resident = phase_resident(chr1, dev)
-        k2_launches, cleaner = phase_cleaner(tmp)
-        phase_gap_fixtures(tmp)
-        rf = phase_repeatfiller(tmp, dev)
-        k1_fc = phase_filter_chains(tmp)
-        sharded = phase_sharded(chr1, resident.pop("host"), dev)
-        dist_launches = phase_distributed(tmp, cleaner)
-        k1_prof = phase_profile(tmp, chr1)
-    dry = phase_dryrun(dev)
+        clocked(phase_fixtures, tmp)
+        entry, chr1 = clocked(phase_chr1, tmp, dev)
+        resident = clocked(phase_resident, chr1, dev)
+        k2_launches, cleaner = clocked(phase_cleaner, tmp)
+        clocked(phase_gap_fixtures, tmp)
+        rf = clocked(phase_repeatfiller, tmp, dev)
+        k1_fc = clocked(phase_filter_chains, tmp)
+        sharded = clocked(phase_sharded, chr1, resident.pop("host"), dev)
+        dist_launches = clocked(phase_distributed, tmp, cleaner)
+        k1_prof = clocked(phase_profile, tmp, chr1)
+    dry = clocked(phase_dryrun, dev)
     entry["max_abs_err"] = max(worst, entry["max_abs_err"])
     entry["launches"] += (k1_fc + k1_prof + sharded[KERNEL]
                           + dist_launches[KERNEL] + dry[KERNEL])
@@ -1224,21 +1326,22 @@ def main() -> int:
                 "launches": (k2_launches + sharded[K2] + dist_launches[K2]
                              + dry[K2]),
                 "max_abs_err": max(worst_k2, resident["max_abs_err"]),
-                "ms": resident["ms"], "plain_ms": resident["plain_ms"]}
+                **{k: resident[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}}
     k3_entry = {"name": K3, "route": "cuda",
                 "source": "genomealignmenttools_tpu_torch/csrc/band.cu",
                 "replaces": "genomealignmenttools_tpu/ops/pallas_band.py:63",
                 "launches": rf["launches"] + dry[K3],
                 "max_abs_err": max(worst_k3, rf["max_abs_err"]),
-                "ms": rf["ms"], "plain_ms": rf["plain_ms"]}
-    # the engines import the jax-free parallel.distributed (shard_indices)
-    # for sharded runs; parallel.mesh is the reference's jax module
-    jax_like = sorted(m for m in sys.modules
-                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
-                      or m.startswith("genomealignmenttools_tpu.ops.pa")
-                      or m == "genomealignmenttools_tpu.parallel.mesh")
-    check(not jax_like, f"jax-backed modules were loaded: {jax_like}")
-    print("[jax] no jax and no jax-backed module of the reference was loaded")
+                **{k: rf[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}}
+    foreign = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "genomealignmenttools_tpu"
+                     or m.startswith("genomealignmenttools_tpu."))
+    check(not foreign, f"jax or the JAX package was loaded: {foreign}")
+    print("[jax] neither jax nor any module of the JAX package was loaded")
+    print(f"[time] whole run: {time.monotonic() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [entry, k2_entry, k3_entry]}))
     print(json.dumps({"ok": True, "device": {

@@ -138,10 +138,12 @@ def load_library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int32),       # 5x5 matrix (host)
         ctypes.c_int, ctypes.c_int,           # global mode, gap open
         ctypes.c_int, ctypes.c_int,           # gap extend, max insert
-        p, p,                                 # parents (uint8), centres
+        p, p,                                 # parents (packed), centres
         p, p,                                 # meta (int32), moves (uint8)
         p,                                    # cudaStream_t
     ]
+    lib.gat_band_parent_row_bytes.restype = ctypes.c_int
+    lib.gat_band_parent_row_bytes.argtypes = [ctypes.c_int]
     lib.gat_cuda_error_string.restype = ctypes.c_char_p
     lib.gat_cuda_error_string.argtypes = [ctypes.c_int]
     _lib = lib

@@ -31,32 +31,58 @@
 //     below 0 (global mode only) that the seed cell cur_off-1 lies past the
 //     state arrays: band_ext raises IndexError there and the C code writes
 //     out of bounds.
-// Output per problem: meta[6] = (ok, best score, a_best, b_best, n_moves,
-// err) and n_moves uint8 moves at moves + a_off + b_off.
+// Output per problem: meta[8] = (ok, best score, a_best, b_best, n_moves,
+// err, columns run, band cells computed) and n_moves uint8 moves at moves +
+// a_off + b_off.  The last two count the work these inputs needed (the
+// local x-drop ends a problem early); the wrapper hands back the first six.
 //
-// What bounds it.  Each problem is a chain of dependent columns (up to 2,048)
-// of a 201-cell band (max_insert 100): per column a few dozen integer
-// operations per cell, an in-column prefix max and a column arg-max, all
-// dependent on the column before.  It is latency-bound on that chain, not
-// on device memory: the state lives in shared memory and the only streams
-// are the codes (one byte per cell read) and the parent bytes (one byte per
-// cell written, read back once along the traceback path).
+// What bounds it.  Integer instructions: every band cell of every column
+// that is run costs a few dozen of them (three states, two tie rules, the
+// scan terms, the parent bits), and a column depends on the one before, so
+// a warp is a chain of up to 2,048 dependent columns, each with a prefix
+// max and an arg-max across the warp.  The bytes (one code byte read and
+// four parent bits written a cell) are a fifth of that.  The first version
+// lost its time in three places: cell arrays indexed by a run-time count (a
+// stack frame in local memory, predicates on every cell), a byte store a
+// cell into a scratch that had been zeroed first, and a traceback in which
+// one lane chased two dependent global loads a step.
 //
-// What the design does about that.  One warp per problem, many problems in
-// flight on every SM.  Each lane owns a contiguous run of C = ceil(band_size
-// / 32) band cells in registers; the six state arrays of a problem sit in
-// shared memory (6 * band_plus int32, 9.7 KB at max_insert 100).  The up
-// state's recurrence u[j] = max(u[j-1] - E, cand[j] - O) is solved as the
-// prefix max of cand[j] - O + j*E, minus j*E (band_ext.py:144-149): a scan
-// inside each lane's run, then a __shfl_up_sync max-scan of the lane
-// totals.  The column best is a __shfl_xor_sync arg-max that keeps the
-// lowest cell.  Every lane keeps the warp-uniform scalars (band centre,
-// shift, best) itself, so no broadcast is needed.  Parents are bytes in a
-// global scratch of a_len * band_size per problem (the wrapper zeroes it, as
-// band_ext's parent array starts at 0); lane 0 walks them for the
-// traceback.  State is int32: with max_insert < 128 and a <= 2,048 every
-// state value stays within about +-2^21 of `bad` (the wrapper checks the
-// bound for the scoring parameters), so nothing near the -2^30 mask wraps.
+// What the design does about that.
+//   - One warp a problem; each lane owns a run of C = ceil(band_size / 32)
+//     band cells.  C is a template parameter, one instantiation for each of
+//     1..8, chosen from max_insert at launch, so the column body is
+//     straight-line code over registers.
+//   - The six state arrays of a problem sit in shared memory (6 * band_plus
+//     int32, 9.9 KB at max_insert 100), one problem a block (a block gives
+//     its slot back when its problem ends; with 2 and 4 problems a block the
+//     kernel measured 8% and 17% slower).  A lane reads
+//     its diagonal neighbours once: prev_m and prev_l at d .. d+C serve both
+//     the diagonal read of cell c and the left read of cell c-1 (3C+2 loads
+//     a lane a column where the first version made 5C).  The seed of the up
+//     state is a value every lane knows, so a column needs one __syncwarp,
+//     at its end.
+//   - The up state's recurrence u[j] = max(u[j-1] - E, cand[j] - O) is the
+//     prefix max of cand[j] - O + j*E, minus j*E (band_ext.py:144-149): a
+//     scan inside each lane's run, then a __shfl_up_sync max-scan of the lane
+//     totals.  The column best is one __reduce_max_sync, a ballot for the
+//     lowest lane that holds it and one shuffle for that lane's first cell.
+//   - Parents are 4 bits a cell (the match parent and the two extension
+//     bits).  A lane packs its C cells into one word (uint8 for C <= 2,
+//     uint16 for C <= 4, else uint32) and the warp stores a column as 32
+//     consecutive words: cell j of column a_pos is nibble j % C of word
+//     a_pos * 32 + j / C.  Nothing is zeroed: band_ext's parent array reads 0
+//     where a column wrote nothing, and the traceback gets the same 0 from
+//     the column's own extent (col_top and n follow from its band centre), so
+//     the scratch is torch.empty and every parent byte is written at most
+//     once (128 bytes a column at max_insert 100, where the first version
+//     zeroed 201 and wrote 201).
+//   - The traceback fetches ahead: the warp loads the parent words and band
+//     centres of the next 32 rows in 33 coalesced loads into the shared
+//     memory the DP has left, and lane 0 walks them there; a step costs a
+//     shared-memory read where it cost two dependent global loads.
+// State is int32: with max_insert < 128 and a <= 2,048 every state value
+// stays within about +-2^21 of `bad` (the wrapper checks the bound for the
+// scoring parameters), so nothing near the -2^30 mask wraps.
 //
 // What is not carried over from the TPU kernel: the int32 widening of the
 // codes, the 128-lane guard and pltpu.roll window reads, scalar extraction
@@ -70,30 +96,49 @@
 
 namespace {
 
-constexpr int kWarps = 4;       // problems per block, one warp each
+constexpr int kWarps = 1;       // problems per block, one warp each
 constexpr int kMaxCells = 8;    // cells per lane: band_size <= 255
 constexpr int kMaxInsert = 127;
 constexpr int32_t kNeg = -(1 << 30);
 constexpr int kMatch = 1, kUp = 2, kLeft = 3, kMask = 3;
 constexpr int kUpExt = 4, kLeftExt = 8;
-constexpr int kMeta = 6;
+constexpr int kMeta = 8;
 constexpr int kErrOutOfBand = 1;  // band_batch.ERR_OUT_OF_BAND
 constexpr int kErrWandered = 2;   // band_batch.ERR_WANDERED
+constexpr int kRows = 32;         // parent rows the traceback fetches ahead
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
   int32_t mat[25];  // [a_code * 5 + b_code]
   int32_t global_mode, gap_open, gap_extend, max_insert;
 };
 
+// The word that holds a lane's C parent nibbles.
+template <int C> struct ParentWord { using type = uint32_t; };
+template <> struct ParentWord<1> { using type = uint8_t; };
+template <> struct ParentWord<2> { using type = uint8_t; };
+template <> struct ParentWord<3> { using type = uint16_t; };
+template <> struct ParentWord<4> { using type = uint16_t; };
+
+// Shared-memory bytes of one warp: the six state arrays, or the traceback's
+// rows and centres where those are larger (a narrow band).
+__host__ __device__ constexpr int warp_bytes(int band_plus, int word_bytes) {
+  const int state = 6 * (band_plus + kMaxCells) * 4;
+  const int rows = kRows * 32 * word_bytes + kRows * 4;
+  return ((state > rows ? state : rows) + 15) / 16 * 16;
+}
+
+template <int C>
 __global__ void __launch_bounds__(kWarps * 32)
 band_ext_kernel(const uint8_t* __restrict__ a_codes,
                 const int64_t* __restrict__ a_off,
                 const uint8_t* __restrict__ b_codes,
                 const int64_t* __restrict__ b_off, int64_t n_problems,
-                Params prm, uint8_t* __restrict__ parents,
+                Params prm, void* __restrict__ parents,
                 int32_t* __restrict__ centers, int32_t* __restrict__ meta,
                 uint8_t* __restrict__ moves) {
-  extern __shared__ int32_t smem[];
+  using Word = typename ParentWord<C>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int32_t s_mat[25];
   if (threadIdx.x < 25) s_mat[threadIdx.x] = prm.mat[threadIdx.x];
   __syncthreads();
@@ -112,15 +157,18 @@ band_ext_kernel(const uint8_t* __restrict__ a_codes,
   const int bad = -O * 100;
   const int max_drop = O + E * mi;
   const int mid = 1 + 2 * mi;
-  const int C = (band_size + 31) / 32;
   const bool global_mode = prm.global_mode != 0;
 
-  int32_t* cur_m = smem + warp * 6 * band_plus;
-  int32_t* cur_u = cur_m + band_plus;
-  int32_t* cur_l = cur_u + band_plus;
-  int32_t* prev_m = cur_l + band_plus;
-  int32_t* prev_u = prev_m + band_plus;
-  int32_t* prev_l = prev_u + band_plus;
+  unsigned char* mine = smem + warp * warp_bytes(band_plus, sizeof(Word));
+  // each array is followed by kMaxCells cells that are never written: the
+  // lane that holds a column's last cell reads up to C cells past it
+  const int stride = band_plus + kMaxCells;
+  int32_t* cur_m = reinterpret_cast<int32_t*>(mine);
+  int32_t* cur_u = cur_m + stride;
+  int32_t* cur_l = cur_u + stride;
+  int32_t* prev_m = cur_l + stride;
+  int32_t* prev_u = prev_m + stride;
+  int32_t* prev_l = prev_u + stride;
   for (int k = lane; k < band_plus; k += 32) {  // band_ext.py:56-66
     cur_m[k] = bad;
     cur_u[k] = bad;
@@ -137,11 +185,16 @@ band_ext_kernel(const uint8_t* __restrict__ a_codes,
   const int b_size = static_cast<int>(b_off[p + 1] - b0);
   const uint8_t* a = a_codes + a0;
   const uint8_t* b = b_codes + b0;
-  uint8_t* par = parents + a0 * band_size;
+  Word* par = static_cast<Word*>(parents) + a0 * 32;
   int32_t* center = centers + a0;
+  const int j0 = lane * C;
+  int32_t jE[C];  // the up state's scan offsets j * E of the lane's cells
+#pragma unroll
+  for (int c = 0; c < C; ++c) jE[c] = (j0 + c) * E;
 
   int band_center = 0, col_shift = 1, init_gap = -O;
   int best = 0, a_best = -1, b_best = -1, err = 0;
+  int columns = 0, cells = 0;
   for (int a_pos = 0; a_pos < a_size; ++a_pos) {
     const int col_top = max(band_center - mi, 0);
     const int col_bottom = min(band_center + mi1, b_size);
@@ -152,100 +205,100 @@ band_ext_kernel(const uint8_t* __restrict__ a_codes,
       err = kErrWandered;
       break;
     }
-    if (lane == 0) cur_u[cur_off - 1] = a_pos < mi ? init_gap : bad;
+    // the up state's seed above cell 0; no lane reads it back in this column
+    const int32_t seed_u = a_pos < mi ? init_gap : bad;
+    if (lane == 0) cur_u[cur_off - 1] = seed_u;
     if (a_pos < mi) init_gap -= E;
-    __syncwarp();
 
     int col_best = bad, col_idx = 0;
+    ++columns;
+    cells += max(n, 0);
     if (n > 0) {
+      // Straight-line over the lane's C cells: a cell past the column's end
+      // (j >= n) is computed like the others from whatever the padded state
+      // arrays hold and masked where it could be seen (m, the scan term,
+      // the stores), so the column body has no branch.
       const int32_t* mrow = s_mat + a[a_pos] * 5;
-      const int32_t seed_u = cur_u[cur_off - 1];
-      const int32_t seed_m = cur_m[cur_off - 1];
-      const int j0 = lane * C;
-      int32_t m[kMaxCells], l[kMaxCells], u[kMaxCells], cand[kMaxCells];
-      int bits[kMaxCells];
-      int32_t m_last = kNeg, run = kNeg;
+      const int32_t seed_m = cur_m[cur_off - 1];  // from two columns back
+      const int live = n - j0;                    // cell c is on iff c < live
+      // the neighbours at d .. d+C: the diagonal of cell c at d+c, its left
+      // at d+c+1
+      // (a lane wholly past the end reads cells 0 .. C, which exist)
+      const int d = live > 0 ? prev_off - 1 + j0 : 0;
+      int32_t pm[C + 1], pl[C + 1];
 #pragma unroll
-      for (int c = 0; c < kMaxCells; ++c) {
-        const int j = j0 + c;
-        const bool on = c < C && j < n;
-        m[c] = kNeg;
-        l[c] = kNeg;
-        bits[c] = 0;
-        if (on) {
-          const int d = prev_off - 1 + j;
-          const int32_t pm = prev_m[d], pl = prev_l[d], pu = prev_u[d];
-          const bool use_diag = pm >= pl && pm >= pu;
-          const bool use_left = !use_diag && pl > pu;
-          m[c] = (use_diag ? pm : use_left ? pl : pu) + mrow[b[col_top + j]];
-          const int32_t ext = prev_l[d + 1] - E;
-          const int32_t opn = prev_m[d + 1] - O;
-          l[c] = ext >= opn ? ext : opn;
-          bits[c] = (use_diag ? kMatch : use_left ? kLeft : kUp) |
-                    (ext >= opn ? kLeftExt : 0);
-        }
-        if (c == C - 1) m_last = m[c];
+      for (int c = 0; c <= C; ++c) {
+        pm[c] = prev_m[d + c];
+        pl[c] = prev_l[d + c];
+      }
+      int32_t m[C], l[C], u[C], cand[C];
+      uint32_t word = 0;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int32_t pu = prev_u[d + c];
+        const unsigned bc = c < live ? b[col_top + j0 + c] : 4u;
+        // diagonal >= left > up: the diagonal where it is the maximum of
+        // the three, else left where it is larger than up, else up (an off
+        // cell's m is masked where it is used)
+        const int32_t from = __vimax3_s32(pm[c], pl[c], pu);
+        m[c] = from + mrow[bc];
+        const int code = pm[c] == from ? kMatch : pl[c] > pu ? kLeft : kUp;
+        const int32_t ext = pl[c + 1] - E;
+        const int32_t opn = pm[c + 1] - O;
+        l[c] = max(ext, opn);
+        word |= static_cast<uint32_t>(code | (ext >= opn ? kLeftExt : 0))
+                << (4 * c);
       }
       // cand[j] = m of the cell above (seed_m above cell 0); the up state is
       // the prefix max of cand[j] - O + j*E (cell 0 also takes seed_u - E),
       // minus j*E
-      const int32_t m_above = __shfl_up_sync(0xffffffffu, m_last, 1);
+      const int32_t m_above = __shfl_up_sync(kFull, m[C - 1], 1);
+      int32_t run = kNeg;
 #pragma unroll
-      for (int c = 0; c < kMaxCells; ++c) {
-        const int j = j0 + c;
-        const bool on = c < C && j < n;
+      for (int c = 0; c < C; ++c) {
         cand[c] = c > 0 ? m[c - 1] : lane > 0 ? m_above : seed_m;
-        int32_t open = cand[c] - O + j * E;
-        if (j == 0) open = max(open, seed_u - E);
-        run = max(run, on ? open : kNeg);
+        int32_t open = cand[c] - O + jE[c];
+        if (c == 0 && lane == 0) open = max(open, seed_u - E);
+        if (c < live) run = max(run, open);
         u[c] = run;  // the lane's own prefix; the lanes before are added below
       }
       int32_t incl = run;
 #pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int32_t y = __shfl_up_sync(0xffffffffu, incl, d);
-        if (lane >= d) incl = max(incl, y);
+      for (int s = 1; s < 32; s <<= 1) {
+        const int32_t y = __shfl_up_sync(kFull, incl, s);
+        if (lane >= s) incl = max(incl, y);
       }
-      int32_t excl = __shfl_up_sync(0xffffffffu, incl, 1);
+      int32_t excl = __shfl_up_sync(kFull, incl, 1);
       if (lane == 0) excl = kNeg;
-      int32_t u_last = kNeg;
 #pragma unroll
-      for (int c = 0; c < kMaxCells; ++c) {
-        u[c] = max(u[c], excl) - (j0 + c) * E;
-        if (c == C - 1) u_last = u[c];
-      }
-      const int32_t u_above = __shfl_up_sync(0xffffffffu, u_last, 1);
-      int32_t lb = kNeg, li = 1 << 30;
-      uint8_t* pcol = par + static_cast<int64_t>(a_pos) * band_size +
-                      (cur_off - mi1);
+      for (int c = 0; c < C; ++c) u[c] = max(u[c], excl) - jE[c];
+      const int32_t u_above = __shfl_up_sync(kFull, u[C - 1], 1);
+      int32_t lb = kNeg, li = 0;
+      int32_t* out_m = cur_m + cur_off + j0;
+      int32_t* out_u = cur_u + cur_off + j0;
+      int32_t* out_l = cur_l + cur_off + j0;
 #pragma unroll
-      for (int c = 0; c < kMaxCells; ++c) {
-        const int j = j0 + c;
-        if (c < C && j < n) {
-          const int32_t u_prev =
-              c > 0 ? u[c - 1] : lane > 0 ? u_above : seed_u;
-          if (u_prev - E >= cand[c] - O) bits[c] |= kUpExt;
-          cur_m[cur_off + j] = m[c];
-          cur_u[cur_off + j] = u[c];
-          cur_l[cur_off + j] = l[c];
-          pcol[j] = static_cast<uint8_t>(bits[c]);
-          if (m[c] > lb) {
-            lb = m[c];
-            li = j;
-          }
+      for (int c = 0; c < C; ++c) {
+        const int32_t u_prev = c > 0 ? u[c - 1] : lane > 0 ? u_above : seed_u;
+        if (u_prev - cand[c] >= E - O) word |= kUpExt << (4 * c);
+        if (c < live) {
+          out_m[c] = m[c];
+          out_u[c] = u[c];
+          out_l[c] = l[c];
+        }
+        if (c < live && m[c] > lb) {
+          lb = m[c];
+          li = j0 + c;
         }
       }
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1) {
-        const int32_t ob = __shfl_xor_sync(0xffffffffu, lb, d);
-        const int32_t oi = __shfl_xor_sync(0xffffffffu, li, d);
-        if (ob > lb || (ob == lb && oi < li)) {
-          lb = ob;
-          li = oi;
-        }
+      if (live > 0) {
+        // the nibbles of off cells are never read: the traceback stops at n
+        par[static_cast<int64_t>(a_pos) * 32 + lane] = static_cast<Word>(word);
       }
-      col_best = lb;
-      col_idx = li;
+      // the first maximum: the lowest lane that holds the warp's maximum
+      col_best = __reduce_max_sync(kFull, lb);
+      const unsigned holds = __ballot_sync(kFull, lb == col_best);
+      col_idx = __shfl_sync(kFull, li, __ffs(holds) - 1);
     }
 
     // band_ext.py:170-186, warp-uniform
@@ -265,48 +318,83 @@ band_ext_kernel(const uint8_t* __restrict__ a_codes,
     t = cur_m; cur_m = prev_m; prev_m = t;
     t = cur_u; cur_u = prev_u; prev_u = t;
     t = cur_l; cur_l = prev_l; prev_l = t;
-    __syncwarp();
+    __syncwarp();  // this column's cells, before the next column reads them
   }
-  __syncwarp();  // the parents of every lane, for lane 0's traceback
-  if (lane != 0) return;
+  __threadfence_block();
+  __syncwarp();  // every lane's parents and lane 0's centres, for the fetch
 
+  // traceback (band_ext.py:188-236): the warp fetches kRows rows of parents
+  // and centres into shared memory, lane 0 walks them
   const int ok = err ? 0 : global_mode ? 1 : best > 0;
   int cnt = 0;
-  if (ok) {  // band_ext.py:188-236
+  if (ok) {
+    Word* rows = reinterpret_cast<Word*>(mine);
+    int32_t* row_center = reinterpret_cast<int32_t*>(rows + kRows * 32);
     uint8_t* mv = moves + a0 + b0;
     int ap = global_mode ? a_size - 1 : a_best;
     int bp = global_mode ? b_size - 1 : b_best;
-    bool up = false, left = false;
-    while (true) {
-      int p_off = bp - center[ap] + mi;
-      if (p_off < 0) p_off = 0;
-      if (p_off >= band_size) {
-        err = kErrOutOfBand;
-        break;
+    int state = 0;  // 0 diagonal, 1 up, 2 left; 3: the walk has ended
+    while (state != 3) {
+      const int top = ap;                      // rows top, top-1, ...
+      const int low = max(ap - (kRows - 1), 0);
+#pragma unroll 8
+      for (int k = 0; k < kRows; ++k) {
+        if (top - k >= low) {
+          rows[k * 32 + lane] = par[static_cast<int64_t>(top - k) * 32 + lane];
+        }
       }
-      const int parent = par[static_cast<int64_t>(ap) * band_size + p_off];
-      if (up) {
-        mv[cnt++] = 2;
-        --bp;
-        up = (parent & kUpExt) != 0;
-      } else if (left) {
-        mv[cnt++] = 3;
-        --ap;
-        left = (parent & kLeftExt) != 0;
-      } else {
-        mv[cnt++] = 1;
-        --ap;
-        --bp;
-        up = (parent & kMask) == kUp;
-        left = (parent & kMask) == kLeft;
+      if (top - lane >= low) row_center[lane] = center[top - lane];
+      __syncwarp();
+      if (lane == 0) {
+        while (ap >= low) {
+          const int k = top - ap;
+          const int c = row_center[k];
+          int p_off = bp - c + mi;
+          if (p_off < 0) p_off = 0;
+          if (p_off >= band_size) {
+            err = kErrOutOfBand;
+            state = 3;
+            break;
+          }
+          // the column's extent; band_ext's parent array holds 0 outside it
+          const int col_top = max(c - mi, 0);
+          const int n = min(c + mi1, b_size) - col_top;
+          const int j = p_off - max(mi - c, 0);
+          int parent = 0;
+          if (j >= 0 && j < n) {
+            parent = (static_cast<uint32_t>(rows[k * 32 + j / C]) >>
+                      (4 * (j % C))) & 15;
+          }
+          if (state == 1) {
+            mv[cnt++] = 2;
+            --bp;
+            state = (parent & kUpExt) ? 1 : 0;
+          } else if (state == 2) {
+            mv[cnt++] = 3;
+            --ap;
+            state = (parent & kLeftExt) ? 2 : 0;
+          } else {
+            mv[cnt++] = 1;
+            --ap;
+            --bp;
+            state = (parent & kMask) == kUp     ? 1
+                    : (parent & kMask) == kLeft ? 2
+                                                : 0;
+          }
+          if (ap < 0 || bp < 0) {
+            for (; ap >= 0; --ap) mv[cnt++] = 3;
+            for (; bp >= 0; --bp) mv[cnt++] = 2;
+            state = 3;
+            break;
+          }
+        }
       }
-      if (ap < 0 || bp < 0) {
-        for (; ap >= 0; --ap) mv[cnt++] = 3;
-        for (; bp >= 0; --bp) mv[cnt++] = 2;
-        break;
-      }
+      ap = __shfl_sync(kFull, ap, 0);
+      state = __shfl_sync(kFull, state, 0);
+      __syncwarp();  // lane 0 has left the rows before the next fetch
     }
   }
+  if (lane != 0) return;
   int32_t* out = meta + p * kMeta;
   out[0] = ok;
   out[1] = best;
@@ -314,18 +402,51 @@ band_ext_kernel(const uint8_t* __restrict__ a_codes,
   out[3] = b_best;
   out[4] = cnt;
   out[5] = err;
+  out[6] = columns;
+  out[7] = cells;
+}
+
+template <int C>
+cudaError_t launch(const void* a_codes, const void* a_off,
+                   const void* b_codes, const void* b_off, int64_t n_problems,
+                   const Params& prm, void* parents, void* centers,
+                   void* meta, void* moves, cudaStream_t stream) {
+  const int64_t blocks = (n_problems + kWarps - 1) / kWarps;
+  if (blocks > 2147483647) return cudaErrorInvalidValue;
+  const int band_plus = 4 * prm.max_insert + 3;
+  const int smem =
+      kWarps * warp_bytes(band_plus, sizeof(typename ParentWord<C>::type));
+  cudaError_t err = cudaFuncSetAttribute(
+      band_ext_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  band_ext_kernel<C><<<static_cast<unsigned>(blocks), kWarps * 32, smem,
+                       stream>>>(
+      static_cast<const uint8_t*>(a_codes),
+      static_cast<const int64_t*>(a_off),
+      static_cast<const uint8_t*>(b_codes),
+      static_cast<const int64_t*>(b_off), n_problems, prm, parents,
+      static_cast<int32_t*>(centers), static_cast<int32_t*>(meta),
+      static_cast<uint8_t*>(moves));
+  return cudaGetLastError();
 }
 
 }  // namespace
+
+// Bytes of parent scratch one column of `a` takes at this max_insert: 32
+// words of 1, 2 or 4 bytes (band_batch.parent_layout computes the same).
+extern "C" int gat_band_parent_row_bytes(int max_insert) {
+  const int cells = (2 * max_insert + 1 + 31) / 32;
+  return 32 * (cells <= 2 ? 1 : cells <= 4 ? 2 : 4);
+}
 
 // Launch K3 on `stream` over n_problems problems; returns the cudaError_t of
 // the launch (0 = success).  mat25 is a host pointer to the 5x5 int32 matrix
 // [a_code * 5 + b_code]; every other pointer is device memory: a and b codes
 // (uint8, every code <= 4) with int64 offsets (n_problems + 1 each, every
-// problem at least one base on each side); `parents` (zeroed, uint8, one
-// band_size row per base of a), `centers` (int32, one per base of a), `meta`
-// (int32, n_problems x 6) and `moves` (uint8, zeroed, one per base of a and
-// b).
+// problem at least one base on each side); `parents` (uninitialised,
+// gat_band_parent_row_bytes(max_insert) bytes per base of a, 4-byte
+// aligned), `centers` (int32, one per base of a), `meta` (int32, n_problems
+// x 8) and `moves` (uint8, zeroed, one per base of a and b).
 extern "C" int gat_band_ext(const void* a_codes, const void* a_off,
                             const void* b_codes, const void* b_off,
                             int64_t n_problems, const int32_t* mat25,
@@ -336,26 +457,30 @@ extern "C" int gat_band_ext(const void* a_codes, const void* a_off,
   if (max_insert < 0 || max_insert > kMaxInsert) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t blocks = (n_problems + kWarps - 1) / kWarps;
-  if (blocks > 2147483647) return static_cast<int>(cudaErrorInvalidValue);
   Params prm;
   for (int i = 0; i < 25; ++i) prm.mat[i] = mat25[i];
   prm.global_mode = global_mode;
   prm.gap_open = gap_open;
   prm.gap_extend = gap_extend;
   prm.max_insert = max_insert;
-  const int band_plus = 4 * max_insert + 3;
-  const int smem = kWarps * 6 * band_plus * static_cast<int>(sizeof(int32_t));
-  cudaError_t err = cudaFuncSetAttribute(
-      band_ext_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  band_ext_kernel<<<static_cast<unsigned>(blocks), kWarps * 32, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(a_codes),
-      static_cast<const int64_t*>(a_off),
-      static_cast<const uint8_t*>(b_codes),
-      static_cast<const int64_t*>(b_off), n_problems, prm,
-      static_cast<uint8_t*>(parents), static_cast<int32_t*>(centers),
-      static_cast<int32_t*>(meta), static_cast<uint8_t*>(moves));
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+#define GAT_BAND_CASE(C)                                                     \
+  case C:                                                                    \
+    err = launch<C>(a_codes, a_off, b_codes, b_off, n_problems, prm,         \
+                    parents, centers, meta, moves, s);                       \
+    break;
+  switch ((2 * max_insert + 1 + 31) / 32) {
+    GAT_BAND_CASE(1)
+    GAT_BAND_CASE(2)
+    GAT_BAND_CASE(3)
+    GAT_BAND_CASE(4)
+    GAT_BAND_CASE(5)
+    GAT_BAND_CASE(6)
+    GAT_BAND_CASE(7)
+    GAT_BAND_CASE(8)
+  }
+#undef GAT_BAND_CASE
+  static_assert(kMaxCells == 8, "one case for each cells-per-lane value");
+  return static_cast<int>(err);
 }

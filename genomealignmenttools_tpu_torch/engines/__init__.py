@@ -1,2 +1,3 @@
-"""Engine entry points of the port: the reference engines whose aligner the
-port must build itself (counterpart of genomealignmenttools_tpu/engines/)."""
+"""Tool engines of the port: the port's own copies of the reference's
+engines (counterpart of genomealignmenttools_tpu/engines/), scoring with
+the torch scorer and aligning gaps with the port's band batch."""

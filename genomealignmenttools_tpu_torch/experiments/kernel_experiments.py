@@ -1,0 +1,323 @@
+#!/usr/bin/env python3
+"""Measurements behind the designs of K1 (csrc/rescore.cu) and K3
+(csrc/band.cu), on one CUDA card.
+
+    python3 genomealignmenttools_tpu_torch/experiments/kernel_experiments.py \\
+        [k1] [k3] [--out DIR]
+
+Run from the root of a checkout.  Builds variants of the two kernels, each
+into its own library under build/experiments/, prints what ptxas reports for
+each (registers, stack frame, spills), checks every variant against the
+plain PyTorch version, and times them in turns with CUDA events at the main
+path's shapes:
+
+k1  the first version (experiments/rescore_v1.cu: one warp a chunk, a byte a
+    lane a load), the second (experiments/rescore_v2.cu: 16-byte loads, a
+    fixed group of 4, 8 or 16 lanes a chunk) and the current source (16-byte
+    loads, the 32-byte units of 32 chunks dealt to the lanes in turn), on the chr1
+    workload's chunks (scoreChain's two launches) and on the cleaner
+    workload's (30,000 short chains and 2,000 planted scenarios).
+k3  the first version (experiments/band_v1.cu: byte parents in a zeroed
+    scratch, lane 0's traceback over global memory) with its torch.zeros
+    timed apart, and the current source whole, without its traceback (the
+    DP alone: `ok` forced to 0; the traceback's share is the difference)
+    and with 2 and 4 problems a block instead of 1, on the extension problems of the
+    600-gap RepeatFiller workload.
+
+The variants are made by replacing one line of a copy of the source; no
+switch is left in the sources.  With --out the SASS of the current K3 at
+max_insert 100 and of K1 is written there (cuobjdump -sass).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+sys.path.insert(0, REPO)
+HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(os.path.dirname(HERE), "csrc")
+
+
+def build_variant(name: str, source: str, edits=()) -> ctypes.CDLL:
+    """nvcc one source (after the (old, new) line edits) into its own
+    library; prints ptxas's counts."""
+    from genomealignmenttools_tpu_torch import _build
+    out_dir = os.path.join(_build.BUILD_DIR, "experiments")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(source) as f:
+        text = f.read()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: {old!r} occurs {text.count(old)} "
+                               f"times in {source}")
+        text = text.replace(old, new)
+    cu = os.path.join(out_dir, name + ".cu")
+    with open(cu, "w") as f:
+        f.write(text)
+    so = os.path.join(out_dir, name + ".so")
+    res = subprocess.run(
+        [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", so, cu],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}:\n{res.stdout}")
+    lines = res.stdout.splitlines()
+    for i, line in enumerate(lines):
+        if "Used" in line and "registers" in line:
+            fn = next((ln for ln in reversed(lines[:i])
+                       if "Compiling entry function" in ln), "")
+            frame = next((ln for ln in lines[max(0, i - 2):i]
+                          if "stack frame" in ln), "")
+            mangled = fn.split("'")[1] if fn else ""
+            at = mangled.find("kernel")
+            print(f"[ptxas] {name}: {mangled[max(at - 16, 0):at + 14]}: "
+                  f"{line.split(':', 1)[-1].strip()}; {frame.strip()}")
+    return ctypes.CDLL(so)
+
+
+def dump_sass(name: str, out_dir: str) -> None:
+    from genomealignmenttools_tpu_torch import _build
+    so = os.path.join(_build.BUILD_DIR, "experiments", name + ".so")
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", so], capture_output=True, text=True)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, name + ".sass"), "w") as f:
+        f.write(res.stdout or res.stderr)
+    print(f"[sass] {name}: {len(res.stdout.splitlines())} lines -> "
+          f"{out_dir}/{name}.sass")
+
+
+def turns(variants: dict, reps: int) -> dict:
+    """CUDA-event ms of every variant, measured in turns, twice over; the
+    smaller of the two."""
+    from chip_smoke import cuda_ms
+    best: dict = {}
+    for _ in range(2):
+        for name, fn in variants.items():
+            ms = cuda_ms(fn, reps)
+            best[name] = min(ms, best.get(name, ms))
+    return best
+
+
+def k1_launcher(lib, lut):
+    import torch
+    p = ctypes.c_void_p
+    lib.gat_rescore_chunks.restype = ctypes.c_int
+    lib.gat_rescore_chunks.argtypes = [
+        p, p, ctypes.POINTER(ctypes.c_int32), p, p, p, ctypes.c_int64, p, p]
+    lut25 = (ctypes.c_int32 * 25)(*lut.reshape(-1).tolist())
+
+    def launch(job):
+        out = torch.empty(job[4].numel(), dtype=torch.int32,
+                          device=job[0].device)
+        err = lib.gat_rescore_chunks(
+            job[0].data_ptr(), job[1].data_ptr(), lut25, job[2].data_ptr(),
+            job[3].data_ptr(), job[4].data_ptr(), job[4].numel(),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: {err}")
+        return out
+    return launch
+
+
+def experiment_k1(tmp: str, out_dir: str | None) -> None:
+    import torch
+
+    from chip_smoke import main_path_chunks
+    from genomealignmenttools_tpu_torch.formats.scorematrix import \
+        score_scheme_default
+    from genomealignmenttools_tpu_torch.ops import window_rescore as wr
+    from genomealignmenttools_tpu_torch.utils.bench_workload import (
+        build_cleaner_workload, build_workload)
+
+    dev = torch.device("cuda", 0)
+    lut = wr.checked_lut(score_scheme_default().lut)
+    src = os.path.join(HERE, "rescore_v2.cu")
+    libs = {"v1 (warp a chunk, byte loads)": build_variant(
+        "rescore_v1", os.path.join(HERE, "rescore_v1.cu"))}
+    for lanes, shift in ((4, 2), (8, 3), (16, 4)):
+        libs[f"v2, {lanes} lanes a chunk"] = build_variant(
+            f"rescore_g{lanes}", src,
+            [("constexpr int kGroup = 8; ", f"constexpr int kGroup = {lanes}; "),
+             ("constexpr int kGroupShift = 3;",
+              f"constexpr int kGroupShift = {shift};")])
+    libs["current (32-byte units dealt to the lanes)"] = build_variant(
+        "rescore_now", os.path.join(CSRC, "rescore.cu"))
+    if out_dir:
+        dump_sass("rescore_now", out_dir)
+    launch = {k: k1_launcher(lib, lut) for k, lib in libs.items()}
+    workloads = {
+        "chr1": build_workload(os.path.join(tmp, "chr1"),
+                               t_size=256_000_000, n_chains=384),
+        "cleaner": build_cleaner_workload(os.path.join(tmp, "cleaner"),
+                                          n_scenarios=2000, n_bulk=30000)}
+    for label, w in workloads.items():
+        jobs = main_path_chunks(w, dev)
+        n_chunks = sum(int(j[4].numel()) for j in jobs)
+        n_bases = sum(int(j[4].sum()) for j in jobs)
+        for job in jobs:
+            want = wr.chunk_sums_plain(job[0], job[1], lut, *job[2:])
+            for name, fn in launch.items():
+                if not torch.equal(fn(job), want):
+                    raise RuntimeError(f"K1 {name} != plain on {label}")
+        ms = turns({name: (lambda fn=fn: [fn(j) for j in jobs])
+                    for name, fn in launch.items()}, 20)
+        bound = 1e3 * (2 * n_bases + 24 * n_chunks) / 3.35e12
+        print(f"[k1] {label}: {len(jobs)} launches, {n_chunks} chunks, "
+              f"{n_bases} bases ({n_bases / n_chunks:.1f} a chunk), byte "
+              f"bound {bound:.4f} ms; all variants == plain; ms: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+        del jobs
+
+
+def k3_launcher(lib, packed: bool):
+    import torch
+
+    from genomealignmenttools_tpu_torch.ops import band_batch as bb
+    p = ctypes.c_void_p
+    lib.gat_band_ext.restype = ctypes.c_int
+    lib.gat_band_ext.argtypes = [
+        p, p, p, p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p, p, p]
+
+    def launch(a, batch):
+        dev = a[0].device
+        n_prob = a[1].numel() - 1
+        if packed:
+            parents = torch.empty(
+                a[0].numel() * bb.parent_layout(batch.max_insert)[1],
+                dtype=torch.uint8, device=dev)
+        else:
+            parents = torch.zeros(
+                a[0].numel() * (2 * batch.max_insert + 1), dtype=torch.uint8,
+                device=dev)
+        centers = torch.empty(a[0].numel(), dtype=torch.int32, device=dev)
+        meta = torch.empty((n_prob, 8 if packed else 6), dtype=torch.int32,
+                           device=dev)
+        moves = torch.zeros(a[0].numel() + a[2].numel(), dtype=torch.uint8,
+                            device=dev)
+        mat25 = (ctypes.c_int32 * 25)(*batch.mat.reshape(-1).tolist())
+        err = lib.gat_band_ext(
+            a[0].data_ptr(), a[1].data_ptr(), a[2].data_ptr(),
+            a[3].data_ptr(), n_prob, mat25, 0, batch.gap_open,
+            batch.gap_extend, batch.max_insert, parents.data_ptr(),
+            centers.data_ptr(), meta.data_ptr(), moves.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: {err}")
+        return meta[:, :6], moves
+    return launch
+
+
+def experiment_k3(tmp: str, out_dir: str | None) -> None:
+    import torch
+
+    from genomealignmenttools_tpu_torch.device.genome import open_genome
+    from genomealignmenttools_tpu_torch.engines.repeat_filler import (
+        _gap_job_regions, harvest_gap_jobs)
+    from genomealignmenttools_tpu_torch.formats.scorematrix import \
+        score_scheme_default
+    from genomealignmenttools_tpu_torch.ops import band_batch as bb
+    from genomealignmenttools_tpu_torch.ops.seed_extend import GapAligner
+    from genomealignmenttools_tpu_torch.utils.bench_workload import \
+        build_repeatfiller_workload
+
+    dev = torch.device("cuda", 0)
+    src = os.path.join(CSRC, "band.cu")
+    no_traceback = ("  const int ok = err ? 0 : global_mode ? 1 : best > 0;",
+                    "  const int ok = 0;")
+    warps = "constexpr int kWarps = 1; "
+    libs = {
+        "v1 (byte parents, zeroed scratch)": (build_variant(
+            "band_v1", os.path.join(HERE, "band_v1.cu")), False),
+        "current": (build_variant("band_now", src), True),
+        "current, DP alone": (build_variant("band_dp", src, [no_traceback]),
+                              True),
+        "current, 2 problems a block": (build_variant(
+            "band_w2", src, [(warps, "constexpr int kWarps = 2; ")]), True),
+        "current, 4 problems a block": (build_variant(
+            "band_w4", src, [(warps, "constexpr int kWarps = 4; ")]), True),
+    }
+    if out_dir:
+        dump_sass("band_now", out_dir)
+    w = build_repeatfiller_workload(os.path.join(tmp, "rf"), n_gaps=600)
+    scheme = score_scheme_default()
+    aligner = GapAligner(
+        scheme.lut, seed_len=6, hsp_threshold=1500, gapped_threshold=2000,
+        gap_open=scheme.gap_open, gap_extend=scheme.gap_extend,
+        char_matrix=scheme.char_matrix(), device=dev)
+    with open(w["chain"]) as fh:
+        lines = [ln + "\n" for ln in fh.read().split("\n")]
+    jobs = harvest_gap_jobs(lines, 0, 0, 0, 10, 10, 100000, 100000)
+    t_gen, q_gen = open_genome(w["t2bit"]), open_genome(w["q2bit"])
+    probs = []
+    for job in jobs:
+        (t_codes, q_codes, _ts, _qs, t_lo, t_hi, q_lo,
+         q_hi) = _gap_job_regions(job, t_gen, q_gen)
+        probs.extend(aligner.align_prepare(t_codes, q_codes, t_lo, t_hi,
+                                           q_lo, q_hi)[2])
+    batch = aligner._band_batch()
+    _, todo = bb.orient(probs, batch.a_max)
+    a = [torch.from_numpy(x).to(dev) for x in bb.pack(todo)]
+    a_cols = int(a[0].numel())
+    plain = bb.band_ext_plain(*a, batch.mat, False, batch.gap_open,
+                              batch.gap_extend, batch.max_insert)
+    launch = {k: k3_launcher(lib, packed) for k, (lib, packed) in
+              libs.items()}
+    for name, fn in launch.items():
+        got = fn(a, batch)
+        torch.cuda.synchronize()
+        if "DP alone" in name:
+            same = torch.equal(got[0][:, 1:4], plain[0][:, 1:4])
+        else:
+            same = all(torch.equal(g, p) for g, p in zip(got, plain))
+        if not same:
+            raise RuntimeError(f"K3 {name} != plain")
+    band = 2 * batch.max_insert + 1
+    variants = {name: (lambda fn=fn: fn(a, batch))
+                for name, fn in launch.items()}
+    variants["torch.zeros of v1's parent scratch"] = lambda: torch.zeros(
+        a_cols * band, dtype=torch.uint8, device=dev)
+    variants["torch.empty + zeros of meta and moves (current)"] = lambda: (
+        torch.empty(a_cols * bb.parent_layout(batch.max_insert)[1],
+                    dtype=torch.uint8, device=dev),
+        torch.zeros(a_cols + int(a[2].numel()), dtype=torch.uint8,
+                    device=dev))
+    ms = turns(variants, 5)
+    print(f"[k3] 600 gaps: {len(todo)} problems, {a_cols} columns of {band} "
+          f"cells; every variant == plain (the DP alone: best, a_best, "
+          f"b_best); ms: " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+
+
+def main(argv: list[str]) -> int:
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_experiments: needs a CUDA card")
+    out_dir = None
+    if "--out" in argv:
+        out_dir = argv[argv.index("--out") + 1]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(f"[device] {smi}")
+    which = [a for a in argv if a in ("k1", "k3")] or ["k1", "k3"]
+    with tempfile.TemporaryDirectory(prefix="kernel_experiments_") as tmp:
+        t0 = time.monotonic()
+        if "k3" in which:
+            experiment_k3(tmp, out_dir)
+        if "k1" in which:
+            experiment_k1(tmp, out_dir)
+        print(f"[done] {time.monotonic() - t0:.1f} s; {smi}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -36,11 +36,10 @@ import os
 import numpy as np
 import torch
 
-from genomealignmenttools_tpu.device.genome import _CHAR_CODE
-from genomealignmenttools_tpu.utils.profiling import phase
-
 from .. import _build
 from ..device import LAUNCHES, PERF, resolve_device
+from ..device.genome import _CHAR_CODE
+from ..utils.profiling import phase
 
 MP_MATCH, MP_UP, MP_LEFT, MP_MASK = 1, 2, 3, 3
 UP_EXT = 1 << 2
@@ -56,19 +55,66 @@ MAX_INSERT_LIMIT = 128          # max_insert < 128 (pallas_band.py:410-411)
 NEG = -(1 << 30)                # the kernel's mask value
 INT32_SAFE = 1 << 29            # bound on |state| checked by the constructor
 PARENT_BUDGET = 1 << 31         # parent bytes of one sub-batch
+LANES = 32                      # a warp; K3 runs one warp a problem
+# (n_problems, 2) int32 on the card, of K3's last launch: the columns each
+# problem ran and the band cells it computed (the local x-drop ends a
+# problem early); what a roofline bound of that launch counts
+LAST_WORK: dict = {"band_ext": None}
 _DASH = ord("-")
 
 
-def check_band_env() -> None:
-    """GAT_BAND picks the host band batch in the reference; the port runs
-    the DP on its own device and raises on any other choice."""
+def band_on_host() -> bool:
+    """GAT_BAND: unset or `auto` runs the DP on the port's device; `host`
+    names the host band batch (native/bandext.cpp, else numpy band_ext), the
+    reference's path on a machine without a TPU (pallas_band.py:427-451).
+    Nothing chooses the host on its own, and any other value raises."""
     mode = os.environ.get("GAT_BAND", "auto")
-    if mode not in ("", "auto"):
-        raise ValueError(
-            f"GAT_BAND={mode!r}: the port runs the band DP on its device "
-            "(K3 on CUDA, the plain version on the CPU); the host band batch "
-            "is the reference CLI's (GAT_BAND=host python -m "
-            "genomealignmenttools_tpu.cli.main ...)")
+    if mode not in ("", "auto", "host"):
+        raise ValueError(f"GAT_BAND={mode!r}: use auto (the port's device) "
+                         "or host (the host band batch)")
+    return mode == "host"
+
+
+def band_device(device: str | torch.device | None) -> torch.device | None:
+    """The device the band DP runs on; None when GAT_BAND=host names the
+    host band batch, whatever `device` says."""
+    return None if band_on_host() else resolve_device(device)
+
+
+def parent_layout(max_insert: int) -> tuple[int, int]:
+    """(cells per lane, bytes of parent scratch per column of `a`) of K3.
+
+    A lane owns C = ceil(band_size / 32) band cells and packs their 4-bit
+    parents into one word of 1 (C <= 2), 2 (C <= 4) or 4 bytes; a column is
+    32 such words, cell j in nibble j % C of word j // C (csrc/band.cu)."""
+    cells = -(-(2 * max_insert + 1) // LANES)
+    return cells, LANES * (1 if cells <= 2 else 2 if cells <= 4 else 4)
+
+
+def pack_parents(parents: np.ndarray, max_insert: int) -> np.ndarray:
+    """K3's parent words of one column-major parent array: (columns, n <=
+    band_size) uint8 parents (4 bits each) -> (columns, 32) words.  The
+    kernel's layout in numpy, for the tests and for reading a scratch."""
+    cells, row_bytes = parent_layout(max_insert)
+    cols, n = parents.shape
+    slots = np.zeros((cols, LANES * cells), np.uint32)
+    slots[:, :n] = parents & 15
+    words = np.zeros((cols, LANES), np.uint32)
+    for c in range(cells):
+        words |= slots[:, c::cells] << np.uint32(4 * c)
+    return words.astype({32: np.uint8, 64: np.uint16,
+                         128: np.uint32}[row_bytes])
+
+
+def unpack_parents(words: np.ndarray, max_insert: int) -> np.ndarray:
+    """The inverse of pack_parents: (columns, 32) words -> (columns,
+    32 * cells) uint8 parents, cell j at column index j."""
+    cells, _ = parent_layout(max_insert)
+    w = words.astype(np.uint32)
+    out = np.zeros((w.shape[0], LANES * cells), np.uint8)
+    for c in range(cells):
+        out[:, c::cells] = (w >> np.uint32(4 * c)) & 15
+    return out
 
 
 def _check_args(a_codes, a_off, b_codes, b_off, mat, max_insert) -> None:
@@ -287,11 +333,16 @@ def _launch_kernel(a_codes, a_off, b_codes, b_off, mat, global_mode: bool,
     lib = _build.load_library()
     dev = a_codes.device
     n_prob = a_off.numel() - 1
-    band_size = 2 * max_insert + 1
-    parents = torch.zeros(a_codes.numel() * band_size, dtype=torch.uint8,
+    # uninitialised: the kernel writes each parent word at most once and
+    # its traceback reads only what a column wrote
+    row_bytes = parent_layout(max_insert)[1]
+    if lib.gat_band_parent_row_bytes(max_insert) != row_bytes:
+        raise RuntimeError("band.cu and parent_layout disagree on the parent "
+                           "scratch")
+    parents = torch.empty(a_codes.numel() * row_bytes, dtype=torch.uint8,
                           device=dev)
     centers = torch.empty(a_codes.numel(), dtype=torch.int32, device=dev)
-    meta = torch.empty((n_prob, 6), dtype=torch.int32, device=dev)
+    meta = torch.empty((n_prob, 8), dtype=torch.int32, device=dev)
     moves = torch.zeros(a_codes.numel() + b_codes.numel(), dtype=torch.uint8,
                         device=dev)
     mat25 = (ctypes.c_int32 * 25)(*mat.reshape(-1).tolist())
@@ -307,7 +358,8 @@ def _launch_kernel(a_codes, a_off, b_codes, b_off, mat, global_mode: bool,
         raise RuntimeError("band_ext launch failed: "
                            + lib.gat_cuda_error_string(err).decode())
     LAUNCHES["band_ext"] += 1
-    return meta, moves
+    LAST_WORK["band_ext"] = meta[:, 6:]
+    return meta[:, :6].contiguous(), moves
 
 
 def band_ext_cuda(a_codes, a_off, b_codes, b_off, mat, global_mode: bool,
@@ -333,15 +385,17 @@ def band_ext_batch(a_codes, a_off, b_codes, b_off, mat, global_mode: bool,
               gap_extend, max_insert)
 
 
-def sub_batches(a_lens, band_size: int, dense: bool, budget: int):
+def sub_batches(a_lens, max_insert: int, dense: bool, budget: int):
     """Contiguous [lo, hi) ranges of problems whose parent bytes fit the
-    budget: sum(a_len) * band_size for the kernel's ragged scratch, count *
-    max(a_len) * (band_size + 1) for the plain version's dense array.  A
-    problem alone over the budget still gets its own range."""
+    budget: sum(a_len) * parent_layout's row bytes for the kernel's ragged
+    packed scratch, count * max(a_len) * (band_size + 1) for the plain
+    version's dense array.  A problem alone over the budget still gets its
+    own range."""
+    band_size, row_bytes = 2 * max_insert + 1, parent_layout(max_insert)[1]
     ranges, lo, total, longest = [], 0, 0, 0
     for i, la in enumerate(a_lens):
         t, lg = total + la, max(longest, la)
-        cost = (i - lo + 1) * lg * (band_size + 1) if dense else t * band_size
+        cost = (i - lo + 1) * lg * (band_size + 1) if dense else t * row_bytes
         if cost > budget and i > lo:
             ranges.append((lo, i))
             lo, t, lg = i, la, la
@@ -426,15 +480,15 @@ class BandExtBatch:
                  gap_open: int, gap_extend: int, max_insert: int,
                  a_max: int = 2048,
                  device: str | torch.device | None = None):
-        check_band_env()
         if max_insert >= MAX_INSERT_LIMIT:
             raise ValueError(f"max_insert must be < {MAX_INSERT_LIMIT}")
         self.global_mode = global_mode
+        self.char_matrix = char_matrix
         self.gap_open = gap_open
         self.gap_extend = gap_extend
         self.max_insert = max_insert
         self.a_max = a_max
-        self.device = resolve_device(device)
+        self.device = band_device(device)
         mat = np.zeros((5, 5), np.int32)
         for i, ca in enumerate(b"TCAGN"):
             for k, cb in enumerate(b"TCAGN"):
@@ -451,10 +505,12 @@ class BandExtBatch:
                              f"(bound {bound} >= 2^29)")
 
     def run(self, problems):
+        if self.device is None:
+            return self._run_host(problems)
         with phase("band: orient"):
             out, todo = orient(problems, self.a_max)
-        band_size = 2 * self.max_insert + 1
-        for lo, hi in sub_batches([len(t[1]) for t in todo], band_size,
+        for lo, hi in sub_batches([len(t[1]) for t in todo],
+                                  self.max_insert,
                                   self.device.type == "cpu",
                                   PARENT_BUDGET):
             self._run_sub(todo[lo:hi], out)
@@ -476,3 +532,78 @@ class BandExtBatch:
                 base = int(a_off[k] + b_off[k])
                 out[i] = decode(meta[k], moves[base:], a, b, direction,
                                 self.global_mode)
+
+    def _run_host(self, problems):
+        """The host band batch, run only when GAT_BAND=host names it: the
+        reference's path without a TPU (pallas_band.py:436-451), the
+        threaded C++ batch or the numpy band_ext loop.  It shares nothing
+        with K3 or its plain version."""
+        if not problems:
+            return []
+        native = self._run_native(problems)
+        if native is not None:
+            return native
+        from .band_ext import band_ext
+        return [band_ext(self.global_mode, self.char_matrix,
+                         self.gap_open, self.gap_extend,
+                         self.max_insert, a, b, d)
+                for a, b, d in problems]
+
+    def _run_native(self, problems):
+        """Threaded C++ batch (native/bandext.cpp), bit-identical to the
+        numpy band_ext oracle; None when the native lib is unavailable or
+        GAT_BAND_NATIVE=0."""
+        import os as _os
+
+        if _os.environ.get("GAT_BAND_NATIVE", "1") == "0":
+            return None
+        from ..native import get_lib
+        lib = get_lib()
+        if lib is None or not hasattr(lib, "gat_band_ext_batch"):
+            return None
+        import ctypes
+        n = len(problems)
+        a_off = np.zeros(n + 1, np.int64)
+        b_off = np.zeros(n + 1, np.int64)
+        dirs = np.zeros(n, np.int32)
+        for i, (a, b, d) in enumerate(problems):
+            a_off[i + 1] = a_off[i] + len(a)
+            b_off[i + 1] = b_off[i] + len(b)
+            dirs[i] = d
+        a_blob = np.frombuffer(b"".join(p[0] for p in problems)
+                               or b"\0", np.uint8)
+        b_blob = np.frombuffer(b"".join(p[1] for p in problems)
+                               or b"\0", np.uint8)
+        mat = np.ascontiguousarray(self.char_matrix, np.int32)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        res_p = lib.gat_band_ext_batch(
+            1 if self.global_mode else 0,
+            mat.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            int(self.gap_open), int(self.gap_extend),
+            int(self.max_insert),
+            a_blob.ctypes.data_as(u8p), a_off.ctypes.data_as(i64p),
+            b_blob.ctypes.data_as(u8p), b_off.ctypes.data_as(i64p),
+            dirs.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            n, 0)
+        try:
+            r = res_p.contents
+            ok = np.ctypeslib.as_array(r.ok, shape=(n,)).copy()
+            ab = np.ctypeslib.as_array(r.a_best, shape=(n,)).copy()
+            bb = np.ctypeslib.as_array(r.b_best, shape=(n,)).copy()
+            soff = np.ctypeslib.as_array(r.sym_off, shape=(n + 1,)).copy()
+            total = int(soff[-1])
+            sa = (np.ctypeslib.as_array(r.sym_a, shape=(total,)).tobytes()
+                  if total else b"")
+            sb = (np.ctypeslib.as_array(r.sym_b, shape=(total,)).tobytes()
+                  if total else b"")
+        finally:
+            lib.gat_band_ext_free(res_p)
+        out = []
+        for i in range(n):
+            if ok[i] == -2:
+                raise AssertionError("bandExt traceback out of band (local)")
+            out.append((bool(ok[i]),
+                        sa[soff[i]:soff[i + 1]], sb[soff[i]:soff[i + 1]],
+                        int(ab[i]), int(bb[i])))
+        return out

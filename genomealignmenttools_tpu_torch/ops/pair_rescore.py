@@ -33,15 +33,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from genomealignmenttools_tpu.engines.scoring import gap_costs
-from genomealignmenttools_tpu.native import get_lib
-from genomealignmenttools_tpu.ops.rescore import _n_threads
-from genomealignmenttools_tpu.utils.bigmem import big_empty
-from genomealignmenttools_tpu.utils.profiling import phase
-
 from ..device import PERF
+from ..engines.scoring import gap_costs
+from ..native import get_lib
+from ..utils.bigmem import big_empty
+from ..utils.profiling import phase
 from .pair_combine import (F_FIRST, F_SAMPLE, F_START, TILE,
                            pair_combine_finish, pair_combine_scan)
+from .rescore import _n_threads
 from .window_rescore import chunk_blocks
 
 CHUNK = 128   # bases per tile row unless GAT_PAIR_CHUNK says otherwise
@@ -125,13 +124,23 @@ class TorchPairBlockScorer:
     contract of PairBlockScorer (pair_rescore.py:325-574) with score tiles.
 
     `host_native` is False, as WindowBlockScorer's, so chainCleaner and
-    chainNet -rescore batch their sub-chains through score_chains."""
-
-    host_native = False
+    chainNet -rescore batch their sub-chains through score_chains.  With
+    `host_native=True` (pair_rescore.py:332-348, 478-525) nothing is
+    packed, uploaded or launched: chunk_scores_multi returns per-block LUT
+    sums from the threaded C++ pass over the host genome arrays (numpy
+    chunk sums without the native library), and the engines take their
+    all-native paths.  TorchChainScorer builds it only in the mode
+    `hostnative`."""
 
     def __init__(self, lut: np.ndarray, t_genome, q_genome,
-                 device: str | torch.device):
-        self.lut8 = lut8_of(lut)
+                 device: str | torch.device, host_native: bool = False):
+        self.host_native = host_native
+        if host_native:
+            # flat [q * 5 + t], padded to 256 so any byte value indexes safely
+            self.lut25 = np.zeros(256, np.int32)
+            self.lut25[:25] = np.asarray(lut, np.int64)[:5, :5].reshape(25)
+        else:
+            self.lut8 = lut8_of(lut)
         self.chunk = pair_chunk()
         self.t_genome = t_genome
         self.q_genome = q_genome
@@ -188,7 +197,11 @@ class TorchPairBlockScorer:
 
     def chunk_scores_multi(self, jobs):
         """(chunk_scores int32[m], c_block int64[m], n_blocks) across jobs
-        [(t_name, q_name, q_strand, blocks)], one pass and one fetch."""
+        [(t_name, q_name, q_strand, blocks)], one pass and one fetch.
+        Host-native: (block_scores int64, None, n_blocks) from the fused
+        native pass, or chunk sums from numpy."""
+        if self.host_native:
+            return self._chunk_scores_host(jobs)
         pack = self._pack(jobs)
         if pack.m == 0:
             return np.zeros(0, np.int32), pack.c_block, pack.n_blocks
@@ -198,8 +211,48 @@ class TorchPairBlockScorer:
             PERF["d2h_bytes"] += cs.nbytes
         return cs, pack.c_block, pack.n_blocks
 
+    def _chunk_scores_host(self, jobs):
+        """No device (pair_rescore.py:481-525): gat_block_scores_direct sums
+        lut25 per block straight from the genome arrays; without the native
+        library, numpy chunk sums."""
+        lib = get_lib()
+        n_blocks = sum(b.shape[0] for (_, _, _, b) in jobs)
+        outs, cbs, base = [], [], 0
+        for (tn, qn, strand, blocks) in jobs:
+            tc = np.ascontiguousarray(self.t_genome.codes(tn, "+"))
+            qc = np.ascontiguousarray(self.q_genome.codes(qn, strand))
+            if lib is not None:
+                u8p = ctypes.POINTER(ctypes.c_uint8)
+                i64p = ctypes.POINTER(ctypes.c_int64)
+                b = np.ascontiguousarray(blocks, np.int64)
+                bs = np.empty(b.shape[0], np.int64)
+                lib.gat_block_scores_direct(
+                    tc.ctypes.data_as(u8p), qc.ctypes.data_as(u8p),
+                    b.ctypes.data_as(i64p), b.shape[0],
+                    self.lut25.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                    bs.ctypes.data_as(i64p), _n_threads())
+                outs.append(bs)
+                continue
+            t_off, q_off, length, c_block = chunk_blocks(blocks, self.chunk)
+            lane = np.arange(self.chunk, dtype=np.int64)
+            t_idx = np.minimum(t_off[:, None] + lane, tc.shape[0] - 1)
+            q_idx = np.minimum(q_off[:, None] + lane, qc.shape[0] - 1)
+            vals = self.lut25[qc[q_idx].astype(np.intp) * 5 + tc[t_idx]]
+            outs.append(np.where(lane < length[:, None], vals, 0)
+                        .sum(axis=1).astype(np.int32))
+            cbs.append(c_block + base)
+            base += blocks.shape[0]
+        if lib is not None:
+            flat = np.concatenate(outs) if outs else np.zeros(0, np.int64)
+            return flat, None, n_blocks
+        if not outs:
+            return np.zeros(0, np.int32), np.zeros(0, np.int64), 0
+        return np.concatenate(outs), np.concatenate(cbs), n_blocks
+
     def block_scores_multi(self, jobs) -> np.ndarray:
         cs, c_block, n_blocks = self.chunk_scores_multi(jobs)
+        if c_block is None:     # host-native: already per-block totals
+            return cs
         out = np.zeros(n_blocks, np.int64)
         np.add.at(out, c_block, cs.astype(np.int64))
         return out

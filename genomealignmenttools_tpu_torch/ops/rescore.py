@@ -1,7 +1,7 @@
 """Batched chain rescoring on the device - the port's main path.
 
 Counterpart of genomealignmenttools_tpu/ops/rescore.py (DeviceChainScorer,
-rescore.py:282-555) in two of its modes, chosen by `mode` or GAT_RESCORE:
+rescore.py:282-555) in three of its modes, chosen by `mode` or GAT_RESCORE:
 
 - `pallas` (also `auto` and unset): per-chunk score sums from K1
   (ops/window_rescore.py, csrc/rescore.cu) over genome codes resident on the
@@ -14,11 +14,22 @@ rescore.py:282-555) in two of its modes, chosen by `mode` or GAT_RESCORE:
   chunk sums and K2 (ops/pair_combine.py, csrc/combine.cu) on the device and
   fetches only (n_chains, 2) int32; otherwise the chunk sums go to the
   native host combine.
+- `hostnative`: no device at all (rescore.py:319-324): the threaded C++
+  LUT sums straight from the host genome arrays and the native combine.
+  The block scorer says `host_native = True`, so the engines take their
+  native break loop, native prescore and fused `gat_subset_scores` paths,
+  as the reference's host run does.  It runs only when named
+  (GAT_RESCORE=hostnative or mode="hostnative"), on the host whatever the
+  device argument says; nothing chooses it and nothing falls back to it.
+  It shares no code with K1, K2 or the torch scorers, which makes it the
+  in-process oracle of the card runs.
 
-The jax-free helpers of the reference (`_native_combine`) are imported as
-they are; `DeviceChainScorer` is not, since its `score_chains` imports
-ops/pair_rescore.py and with it jax.  Results are bit-identical to
-engines.scoring.ChainScorer: everything is integer math.
+The jax-free tail of the reference's module (`_n_threads`, `lut25_of`,
+`table_row_code_ptrs`, `native_subset_scores`, `_native_combine`) is the
+reference's text.  The reference's `xla` mode and its backend probing
+(`auto_scorer_factory`) are not ported: the device is named, never guessed.
+Results are bit-identical to engines.scoring.ChainScorer: everything is
+integer math.
 """
 
 from __future__ import annotations
@@ -29,18 +40,27 @@ import os
 import numpy as np
 import torch
 
-from genomealignmenttools_tpu.engines.scoring import (chain_global_score,
-                                                      chain_local_score,
-                                                      gap_costs)
-from genomealignmenttools_tpu.native import get_lib
-from genomealignmenttools_tpu.ops.rescore import _native_combine
-from genomealignmenttools_tpu.utils.profiling import phase
-
 from ..device import PERF, resolve_device
-from .pair_rescore import TorchPairBlockScorer, TorchPairChainScorer
+from ..engines.scoring import (chain_global_score, chain_local_score,
+                               gap_costs)
+from ..native import get_lib
+from ..utils.profiling import phase
 from .window_rescore import WindowBlockScorer
 
-RESCORE_MODES = ("auto", "pallas", "pair")
+# .pair_rescore is imported inside the functions that need it: it imports
+# _n_threads from this module, as the reference's does
+
+
+def _n_threads(cap: int = 16) -> int:
+    """Native worker-thread count; GAT_THREADS=N overrides (1 = the
+    determinism oracle, tests/test_thread_determinism.py)."""
+    env = os.environ.get("GAT_THREADS")
+    if env and env.isdigit() and int(env) >= 1:
+        return min(int(env), cap)
+    return min(os.cpu_count() or 1, cap)
+
+
+RESCORE_MODES = ("auto", "pallas", "pair", "hostnative")
 COMBINE_MODES = ("auto", "device", "host")
 
 # Process-wide device-resident genome codes, shared by every
@@ -83,7 +103,9 @@ class TorchChainScorer:
 
     Interface of DeviceChainScorer (rescore.py:282-555).  `_dev` is the
     window or the pair block scorer; neither is host-native, so chainCleaner
-    and chainNet -rescore batch their sub-chains through score_chains."""
+    and chainNet -rescore batch their sub-chains through score_chains.  In
+    mode `hostnative` `_dev` is the host-native pair scorer and no device is
+    touched or resolved."""
 
     def __init__(self, scheme, gap_calc, t_genome, q_genome,
                  device: str | torch.device | None = None,
@@ -92,7 +114,6 @@ class TorchChainScorer:
         self.gap_calc = gap_calc
         self.t_genome = t_genome
         self.q_genome = q_genome
-        self.device = resolve_device(device)
         if mode is None:
             mode = os.environ.get("GAT_RESCORE", "auto")
         if mode not in RESCORE_MODES:
@@ -100,7 +121,15 @@ class TorchChainScorer:
                 f"GAT_RESCORE={mode!r}: the port runs {', '.join(RESCORE_MODES)}"
                 "; the reference's other modes are not ported (ROADMAP.md)")
         self.mode = mode
-        if mode == "pair":
+        self.device = (torch.device("cpu") if mode == "hostnative"
+                       else resolve_device(device))
+        if mode in ("hostnative", "pair"):
+            from .pair_rescore import TorchPairBlockScorer
+        if mode == "hostnative":
+            self._dev = TorchPairBlockScorer(np.asarray(scheme.lut), t_genome,
+                                             q_genome, self.device,
+                                             host_native=True)
+        elif mode == "pair":
             self._dev = TorchPairBlockScorer(np.asarray(scheme.lut), t_genome,
                                              q_genome, self.device)
         else:
@@ -169,8 +198,9 @@ class TorchChainScorer:
             combine = "device" if self._repeat_workload else "host"
         return combine == "device" and self.mode == "pair"
 
-    def _pair_chain(self) -> TorchPairChainScorer:
+    def _pair_chain(self):
         if self._pair_chain_scorer is None:
+            from .pair_rescore import TorchPairChainScorer
             self._pair_chain_scorer = TorchPairChainScorer(self._dev,
                                                            self.gap_calc)
         return self._pair_chain_scorer
@@ -210,8 +240,11 @@ class TorchChainScorer:
                               int(out[k, 2]))
             return results
         # no native library (GAT_NATIVE=0): numpy combine per chain
-        flat = np.zeros(n_blocks, np.int64)
-        np.add.at(flat, c_block, cs.astype(np.int64))
+        if c_block is None:     # host-native: already per-block totals
+            flat = cs
+        else:
+            flat = np.zeros(n_blocks, np.int64)
+            np.add.at(flat, c_block, cs.astype(np.int64))
         off = 0
         for i in order:
             c = chains[i]
@@ -234,6 +267,11 @@ class TorchChainScorer:
         if n == 0:
             return np.zeros((0, 3))
         (t_ids, names), (q_ids, qnames) = table.names_factorized()
+        if self._dev.host_native and hasattr(lib, "gat_subset_scores"):
+            # all-host path: gat_subset_scores with full-range windows
+            # scores every chain straight from the table columns
+            return self._score_table_native(lib, table, t_ids, names,
+                                            q_ids, qnames)
         minus = (table.strands == ord("-")).astype(np.int64)
         key = ((t_ids.astype(np.int64) << 33)
                | (q_ids.astype(np.int64) << 1) | minus)
@@ -266,6 +304,21 @@ class TorchChainScorer:
         results[order] = out
         return results
 
+    def _score_table_native(self, lib, table, t_ids, names, q_ids, qnames):
+        n = len(table)
+        sel = np.arange(n)
+        t_ptrs, q_ptrs, keepalive = table_row_code_ptrs(
+            table, sel, self.t_genome, self.q_genome)
+        jobs = np.empty((n, 3), np.int64)
+        jobs[:, 0] = sel
+        jobs[:, 1] = table.header[:, 1]  # t_start: full cover
+        jobs[:, 2] = table.header[:, 2]  # t_end
+        out = native_subset_scores(lib, table.blocks, table.block_offsets,
+                                   t_ptrs, q_ptrs, lut25_of(self.scheme.lut),
+                                   self.gap_calc, jobs)
+        del keepalive
+        return out[:, :3].astype(np.float64)
+
 
 def torch_scorer_factory(device: str | torch.device | None = None,
                          mode: str | None = None):
@@ -273,6 +326,125 @@ def torch_scorer_factory(device: str | torch.device | None = None,
     score_chain_file, chain_net and clean_chains): TorchChainScorer on
     `device` in `mode` (None: GAT_RESCORE).  Counterpart of
     auto_scorer_factory (rescore.py:558-593), without its backend probing:
-    the device is named, never guessed."""
-    return functools.partial(TorchChainScorer, device=resolve_device(device),
-                             mode=mode)
+    the device is named, never guessed.  The host-native mode resolves no
+    device: it runs on the host whatever `device` says."""
+    if (mode or os.environ.get("GAT_RESCORE", "auto")) != "hostnative":
+        device = resolve_device(device)
+    return functools.partial(TorchChainScorer, device=device, mode=mode)
+
+
+def lut25_of(scheme_lut) -> np.ndarray:
+    """Flat 5x5 int32 LUT indexed [q*5+t] (native scoring layout)."""
+    lut25 = np.zeros(25, np.int32)
+    lut = np.asarray(scheme_lut)
+    for qv in range(min(5, lut.shape[0])):
+        for tv in range(min(5, lut.shape[1])):
+            lut25[qv * 5 + tv] = lut[qv, tv]
+    return lut25
+
+
+def table_row_code_ptrs(table, sel, t_genome, q_genome):
+    """Per-row genome code pointers for ChainTable rows `sel`.
+
+    Returns (t_ptrs, q_ptrs, keepalive): ctypes pointer arrays indexed by
+    position within sel, plus the list of arrays that must stay alive for
+    the duration of the native call."""
+    import ctypes
+    (t_ids, names), (q_ids, qnames) = table.names_factorized()
+    t_ids = t_ids[sel]
+    q_ids = q_ids[sel]
+    minus = table.strands[sel] == ord("-")
+    t_arrs = {j: np.ascontiguousarray(t_genome.codes(names[j], "+"))
+              for j in set(t_ids.tolist())}
+    q_plus, q_minus = {}, {}
+    for j in set(q_ids.tolist()):
+        rows_j = q_ids == j
+        if (rows_j & ~minus).any():
+            q_plus[j] = np.ascontiguousarray(q_genome.codes(qnames[j], "+"))
+        if (rows_j & minus).any():
+            q_minus[j] = np.ascontiguousarray(q_genome.codes(qnames[j], "-"))
+    n = int(sel.shape[0])
+    t_ptrs = (ctypes.c_void_p * n)()
+    q_ptrs = (ctypes.c_void_p * n)()
+    t_ptr_of = {j: a.ctypes.data for j, a in t_arrs.items()}
+    qp_ptr = {j: a.ctypes.data for j, a in q_plus.items()}
+    qm_ptr = {j: a.ctypes.data for j, a in q_minus.items()}
+    mlist = minus.tolist()
+    qlist = q_ids.tolist()
+    for i, tj in enumerate(t_ids.tolist()):
+        t_ptrs[i] = t_ptr_of[tj]
+        q_ptrs[i] = qm_ptr[qlist[i]] if mlist[i] else qp_ptr[qlist[i]]
+    keepalive = (list(t_arrs.values()) + list(q_plus.values())
+                 + list(q_minus.values()))
+    return t_ptrs, q_ptrs, keepalive
+
+
+def native_subset_scores(lib, blocks, chain_off, t_ptrs, q_ptrs, lut25,
+                         gap_calc, jobs_arr) -> np.ndarray:
+    """gat_subset_scores: fused chainSubsetOnT + scoring over (row, t_lo,
+    t_hi) jobs; returns (n_jobs, 4) int64 [global, local, ali, exists]."""
+    import ctypes
+    blocks = np.ascontiguousarray(blocks, np.int64)
+    chain_off = np.ascontiguousarray(chain_off, np.int64)
+    jobs_arr = np.ascontiguousarray(jobs_arr, np.int64)
+    lut25 = np.ascontiguousarray(lut25, np.int32)
+    out = np.empty((jobs_arr.shape[0], 4), np.int64)
+    gc = gap_calc
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.gat_subset_scores(
+        blocks.ctypes.data_as(i64p), chain_off.ctypes.data_as(i64p),
+        chain_off.shape[0] - 1, t_ptrs, q_ptrs,
+        lut25.ctypes.data_as(i32p),
+        jobs_arr.ctypes.data_as(i64p), jobs_arr.shape[0],
+        int(gc.small_size),
+        gc.q_small.ctypes.data_as(i64p),
+        gc.t_small.ctypes.data_as(i64p),
+        gc.b_small.ctypes.data_as(i64p),
+        gc.long_pos.ctypes.data_as(i64p), int(gc.long_pos.shape[0]),
+        np.ascontiguousarray(gc.q_long).ctypes.data_as(f64p),
+        np.ascontiguousarray(gc.t_long).ctypes.data_as(f64p),
+        np.ascontiguousarray(gc.b_long).ctypes.data_as(f64p),
+        out.ctypes.data_as(i64p),
+        _n_threads())
+    return out
+
+
+def _native_combine(lib, chunk_scores: np.ndarray, c_block: np.ndarray,
+                    blocks: np.ndarray, chain_off: np.ndarray, gap_calc):
+    """Call gat_combine_scores; returns (n_chains, 3) int64
+    [global, local, ali]."""
+    import ctypes
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    n_chains = chain_off.shape[0] - 1
+    n_blocks = blocks.shape[0]
+    out = np.zeros((n_chains, 3), np.int64)
+    if c_block is None:
+        # chunk_scores already ARE the per-block totals (fused direct
+        # host scoring); skip the segment-sum stage entirely
+        bs_out = np.ascontiguousarray(chunk_scores, np.int64)
+        chunk_scores = np.zeros(0, np.int32)
+        c_block = np.zeros(0, np.int64)
+    else:
+        bs_out = np.zeros(n_blocks, np.int64)
+        chunk_scores = np.ascontiguousarray(chunk_scores, np.int32)
+        c_block = np.ascontiguousarray(c_block, np.int64)
+    gc = gap_calc
+    lib.gat_combine_scores(
+        chunk_scores.ctypes.data_as(i32p), c_block.ctypes.data_as(i64p),
+        chunk_scores.shape[0],
+        blocks.ctypes.data_as(i64p), chain_off.ctypes.data_as(i64p),
+        n_chains,
+        int(gc.small_size),
+        gc.q_small.ctypes.data_as(i64p), gc.t_small.ctypes.data_as(i64p),
+        gc.b_small.ctypes.data_as(i64p),
+        gc.long_pos.ctypes.data_as(i64p), gc.long_pos.shape[0],
+        np.ascontiguousarray(gc.q_long).ctypes.data_as(f64p),
+        np.ascontiguousarray(gc.t_long).ctypes.data_as(f64p),
+        np.ascontiguousarray(gc.b_long).ctypes.data_as(f64p),
+        bs_out.ctypes.data_as(i64p),
+        out.ctypes.data_as(i64p))
+    return out

@@ -23,10 +23,9 @@ import ctypes
 import numpy as np
 import torch
 
-from genomealignmenttools_tpu.utils.profiling import phase
-
 from .. import _build
 from ..device import LAUNCHES, PERF
+from ..utils.profiling import phase
 
 CHUNK = 256  # max bases per chunk (pallas_rescore.py:37)
 

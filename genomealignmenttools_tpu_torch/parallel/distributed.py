@@ -10,7 +10,7 @@ Counterpart of genomealignmenttools_tpu/parallel/distributed.py:
   NCCL refuses two ranks on one GPU).
 - `hosts_chips_mesh()` - (world size, this rank's devices): a torch process
   addresses only its own cards.
-- `shard_indices` - the reference's contiguous work partition (jax-free),
+- `shard_indices` - the reference's contiguous work partition (its text),
   so per-rank outputs concatenate back in input order.
 - `host0_merge_text(...)` - all-gather of fixed-size, length-prefixed uint8
   tensors on the backend's device (CUDA for NCCL, the CPU for gloo); every
@@ -24,10 +24,6 @@ import os
 import numpy as np
 import torch
 import torch.distributed as dist
-
-from genomealignmenttools_tpu.parallel.distributed import shard_indices
-
-from .mesh import make_mesh
 
 __all__ = ["init_distributed", "hosts_chips_mesh", "shard_indices",
            "host0_merge_text", "world"]
@@ -74,7 +70,19 @@ def world() -> tuple[int, int]:
 def hosts_chips_mesh(devices=None) -> tuple[int, tuple[torch.device, ...]]:
     """(world size, this rank's devices): make_mesh(devices=devices), by
     default every card the process sees."""
+    from .mesh import make_mesh     # mesh imports shard_indices from here
     return world()[0], make_mesh(devices=devices)
+
+
+def shard_indices(n: int, num_shards: int, shard: int) -> range:
+    """Deterministic contiguous partition of n work-units.
+
+    Contiguous (not round-robin) so concatenating per-shard outputs in
+    shard order reproduces input order exactly - the merge step is a
+    plain cat, and bytes are identical at every topology."""
+    base, extra = divmod(n, num_shards)
+    start = shard * base + min(shard, extra)
+    return range(start, start + base + (1 if shard < extra else 0))
 
 
 def host0_merge_text(local_text: str, max_bytes: int = 1 << 26) -> str:

@@ -27,20 +27,18 @@ import tempfile
 import numpy as np
 import torch
 
-from genomealignmenttools_tpu.engines.chain_cleaner import (
-    clean_chains, merge_cleaner_shards)
-from genomealignmenttools_tpu.engines.chain_net import chain_net
-from genomealignmenttools_tpu.engines.scoring import ChainScorer
-from genomealignmenttools_tpu.formats.chain import Chain
-from genomealignmenttools_tpu.formats.gapcalc import gap_calc_default
-from genomealignmenttools_tpu.formats.scorematrix import score_scheme_default
-from genomealignmenttools_tpu.ops.band_ext import band_ext
-from genomealignmenttools_tpu.parallel.distributed import shard_indices
-from genomealignmenttools_tpu.utils.verbose import set_verbosity, verbosity
-
+from ..engines.chain_cleaner import clean_chains, merge_cleaner_shards
+from ..engines.chain_net import chain_net
 from ..engines.repeat_filler import repeat_filler
+from ..engines.scoring import ChainScorer
+from ..formats.chain import Chain
+from ..formats.gapcalc import gap_calc_default
+from ..formats.scorematrix import score_scheme_default
 from ..ops import band_batch as bb
+from ..ops.band_ext import band_ext
 from ..ops.rescore import torch_scorer_factory
+from ..utils.verbose import set_verbosity, verbosity
+from .distributed import shard_indices
 from .mesh import (ShardedBlockScorer, ShardedChainScorer, ShardedPairScorer,
                    make_mesh)
 

@@ -31,12 +31,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from genomealignmenttools_tpu.parallel.distributed import shard_indices
-
 from ..device import PERF, resolve_device
 from ..ops.pair_rescore import fill_scored, lut8_of, pair_chunk
 from ..ops.rescore import TorchChainScorer
 from ..ops.window_rescore import checked_lut, chunk_blocks, chunk_sums
+from .distributed import shard_indices
 
 
 def make_mesh(n_devices: int | None = None,

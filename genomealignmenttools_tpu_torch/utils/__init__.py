@@ -1,2 +1,3 @@
-"""Host utilities of the port (profiling.py); the jax-free utilities of the
-reference (verbose, bench_workload, pipeline) are imported as they are."""
+"""Host utilities of the port: profiling.py (torch.profiler, the phase
+timers) and its own copies of the reference's verbose, bigmem, kenthash,
+pipeline and bench_workload."""

@@ -12,9 +12,9 @@ jax.block_until_ready (profiling.py:73-96):
 - `device_timer(fn, ...)` - (result, seconds), synchronising the CUDA
   devices of the result before the clock stops.
 
-The phase timers and the profile directory are the reference's own
-(re-exported below), so the directory is one piece of global state for both
-CLIs.
+The phase timers and the profile directory (`phase`, `phase_add`,
+`phase_acc_start`/`phase_acc_stop`, `set_profile_dir`, `profile_dir`) are
+the reference's text (profiling.py:24-70).
 """
 
 from __future__ import annotations
@@ -25,12 +25,57 @@ import time
 
 import torch
 
-from genomealignmenttools_tpu.utils.profiling import (  # noqa: F401
-    phase, phase_acc_start, phase_acc_stop, phase_add, profile_dir,
-    set_profile_dir)
-from genomealignmenttools_tpu.utils.verbose import verbose
-
 from ..device import resolve_device
+from .verbose import verbose
+
+_profile_dir: str | None = None
+
+
+def set_profile_dir(path: str | None) -> None:
+    global _profile_dir
+    _profile_dir = path
+
+
+def profile_dir() -> str | None:
+    return _profile_dir if _profile_dir is not None \
+        else (os.environ.get("GAT_PROFILE") or None)
+
+
+_phase_acc: dict | None = None
+
+
+def phase_acc_start() -> None:
+    """Begin accumulating phase() durations (bench phase breakdowns)."""
+    global _phase_acc
+    _phase_acc = {}
+
+
+def phase_acc_stop() -> dict:
+    """Stop accumulating; returns {phase_name: seconds}."""
+    global _phase_acc
+    acc, _phase_acc = _phase_acc, None
+    return acc or {}
+
+
+def phase_add(name: str, seconds: float) -> None:
+    """Record a phase duration measured by the caller (no-op unless a
+    phase accumulation is active)."""
+    if _phase_acc is not None:
+        _phase_acc[name] = _phase_acc.get(name, 0.0) + seconds
+
+
+@contextlib.contextmanager
+def phase(name: str, level: int = 2):
+    """Wall-clock phase timer: 'name: N millis' at the given verbosity."""
+    t0 = time.monotonic()
+    try:
+        yield
+    finally:
+        dt = time.monotonic() - t0
+        if _phase_acc is not None:
+            _phase_acc[name] = _phase_acc.get(name, 0.0) + dt
+        verbose(level, "%s: %d millis\n" % (name, int(dt * 1000)))
+
 
 
 @contextlib.contextmanager

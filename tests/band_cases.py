@@ -16,7 +16,9 @@ chip_smoke.py: (a_seq, b_seq, direction) byte strings over ACGT(N).
   left from two columns back) and WANDERED (band_ext raises IndexError in
   global mode: the band centre falls below the state arrays);
 - `kernel_cases`: all of these as the sets K3 is held against its plain
-  version on (tests/test_torch_kernels_gpu.py, chip_smoke.py).
+  version on (tests/test_torch_kernels_gpu.py, chip_smoke.py);
+- `instantiation_cases`: both modes at one max_insert for every count of
+  band cells a lane of K3 can own (1 to 8: K3 has one instantiation each).
 """
 
 import numpy as np
@@ -159,6 +161,27 @@ def kernel_cases(seed=20261018, n=160):
 
 
 N_KERNEL_CASES = 12   # len(kernel_cases())
+
+# every cells-per-lane count ceil((2 * mi + 1) / 32) = 1..8 (1 twice: the
+# narrowest band and RepeatFiller's smallest)
+INSTANTIATION_MAX_INSERTS = (1, 7, 20, 40, 60, 70, 80, 100, 127)
+N_INSTANTIATION_CASES = 18   # len(instantiation_cases())
+
+
+def instantiation_cases(seed=20261020, n=32):
+    """(label, global_mode, gap_open, gap_extend, max_insert, problems) for
+    both modes at every max_insert of INSTANTIATION_MAX_INSERTS: random,
+    edge and wandering problems, lengths up to 300."""
+    rng = np.random.default_rng(seed)
+    sets = []
+    for global_mode in (False, True):
+        for mi in INSTANTIATION_MAX_INSERTS:
+            probs = (random_problems(rng, n, 300, mi) + edge_problems()
+                     + wandering_problems(rng, 4, mi))
+            sets.append((f"{'global' if global_mode else 'local'} "
+                         f"max_insert {mi} ({-(-(2 * mi + 1) // 32)} cells "
+                         f"a lane)", global_mode, 400, 30, mi, probs))
+    return sets
 
 
 def raw_inputs(problems, device):

@@ -133,11 +133,11 @@ def test_sub_batches_give_the_same_results(monkeypatch):
     monkeypatch.setattr(bb, "PARENT_BUDGET", 41 * 200 * 3)
     split = _port(False, probs, 20)
     assert split == whole == _oracle(False, probs, 20)
-    ranges = bb.sub_batches([len(a) for a, _, _ in probs], 41, dense=True,
+    ranges = bb.sub_batches([len(a) for a, _, _ in probs], 20, dense=True,
                             budget=41 * 200 * 3)
     assert len(ranges) > 5
     assert ranges[0][0] == 0 and ranges[-1][1] == len(probs)
-    assert bb.sub_batches([500], 41, dense=False, budget=10) == [(0, 1)]
+    assert bb.sub_batches([500], 20, dense=False, budget=10) == [(0, 1)]
 
 
 def test_constructor_and_run_refusals(monkeypatch):
@@ -149,9 +149,12 @@ def test_constructor_and_run_refusals(monkeypatch):
     assert batch.run([]) == []
     with pytest.raises(ValueError, match="int32"):
         bb.BandExtBatch(False, CM, 10 ** 7, 30, 7, device="cpu")
-    monkeypatch.setenv("GAT_BAND", "host")
-    with pytest.raises(ValueError, match="reference CLI"):
+    monkeypatch.setenv("GAT_BAND", "pallas")
+    with pytest.raises(ValueError, match="GAT_BAND"):
         bb.BandExtBatch(False, CM, 400, 30, 7, device="cpu")
+    # the host band batch runs only when named, and resolves no device
+    monkeypatch.setenv("GAT_BAND", "host")
+    assert bb.BandExtBatch(False, CM, 400, 30, 7).device is None
 
 
 def test_wrapper_refuses_bad_inputs():
@@ -174,3 +177,49 @@ def test_wrapper_refuses_bad_inputs():
         bb.band_ext_batch(a, a_off, b, b_off, mat, False, 400, 30, 128)
     with pytest.raises(ValueError, match="CUDA tensors"):
         bb.band_ext_cuda(a, a_off, b, b_off, mat, False, 400, 30, 7)
+
+
+@pytest.mark.parametrize("max_insert,cells,row_bytes", [
+    (0, 1, 32), (1, 1, 32), (7, 1, 32), (15, 1, 32), (16, 2, 32),
+    (20, 2, 32), (31, 2, 32), (32, 3, 64), (40, 3, 64), (60, 4, 64),
+    (63, 4, 64), (64, 5, 128), (70, 5, 128), (80, 6, 128), (100, 7, 128),
+    (127, 8, 128)])
+def test_parent_layout(max_insert, cells, row_bytes):
+    """K3's packed parent scratch: cells a lane, bytes a column; 32 lanes
+    hold the whole band, and the word holds the lane's 4-bit parents."""
+    assert bb.parent_layout(max_insert) == (cells, row_bytes)
+    assert 32 * cells >= 2 * max_insert + 1 > 32 * (cells - 1)
+    assert row_bytes // 32 * 8 >= 4 * cells
+
+
+@pytest.mark.parametrize("max_insert", [1, 7, 20, 40, 60, 70, 80, 100, 127])
+def test_parent_pack_round_trip(max_insert):
+    """pack_parents / unpack_parents: cell j of a column is nibble j % C of
+    word j // C, for every cells-per-lane count."""
+    rng = np.random.default_rng(max_insert)
+    band = 2 * max_insert + 1
+    cells, row_bytes = bb.parent_layout(max_insert)
+    parents = rng.integers(0, 16, (50, band)).astype(np.uint8)
+    words = bb.pack_parents(parents, max_insert)
+    assert words.shape == (50, 32) and words.nbytes == 50 * row_bytes
+    j = int(rng.integers(0, band))
+    assert ((int(words[7, j // cells]) >> (4 * (j % cells))) & 15
+            == parents[7, j])
+    back = bb.unpack_parents(words, max_insert)
+    assert np.array_equal(back[:, :band], parents)
+    assert not back[:, band:].any()
+
+
+def test_sub_batches_budget_counts_packed_parent_bytes():
+    """The kernel's budget counts parent_layout's bytes a column: 128 at
+    max_insert 100 (201 in the byte-a-cell layout), so a 2 GiB sub-batch
+    holds more columns."""
+    lens = [2000] * 10
+    per_problem = 2000 * bb.parent_layout(100)[1]
+    assert bb.sub_batches(lens, 100, False, 3 * per_problem) == [
+        (0, 3), (3, 6), (6, 9), (9, 10)]
+    assert bb.sub_batches(lens, 100, False, 3 * per_problem - 1) == [
+        (0, 2), (2, 4), (4, 6), (6, 8), (8, 10)]
+    assert bb.sub_batches(lens, 100, False, bb.PARENT_BUDGET) == [(0, 10)]
+    assert bb.PARENT_BUDGET // bb.parent_layout(100)[1] > \
+        bb.PARENT_BUDGET // 201

@@ -5,8 +5,10 @@ genomealignmenttools_tpu_torch.cli.main with -device=cpu must write exactly
 the C goldens and exactly what the JAX package's CLI writes, and must score
 through the port's scorer (its dispatch counter moves); in pair mode
 (GAT_RESCORE=pair GAT_COMBINE=device) they must write the same goldens, and
-chainNet -rescore and chainCleaner must go through the device combine.  Other commands are
-forwarded to the JAX CLI unchanged.
+chainNet -rescore and chainCleaner must go through the device combine; in the
+host-native mode (GAT_RESCORE=hostnative, run only when named) they must
+write the same goldens without a device and without the port's kernels'
+wrappers.  Every other command runs in the port too: nothing is forwarded.
 """
 
 import os
@@ -93,7 +95,13 @@ def test_score_chain_output_modes_match_jax_cli(fixtures_dir, tmp_path,
 
 
 def test_other_commands_are_forwarded(fixtures_dir, golden_dir, tmp_path):
+    """Nothing is forwarded any more: the port runs chainSwap itself (no
+    module of the JAX package is needed: tests/test_torch_no_jax.py), and
+    -device is accepted and ignored by a command that touches no device."""
     out = str(tmp_path / "swap.chain")
+    assert port_main(["chainSwap", os.path.join(
+        fixtures_dir, "synthetic.scored.sorted.chain"), out,
+        "-device=cuda"]) == 0
     perf_reset()
     assert port_main(["chainSwap", os.path.join(
         fixtures_dir, "synthetic.scored.sorted.chain"), out]) == 0
@@ -241,3 +249,30 @@ def test_chain_cleaner_threshold_flags_pair_mode(fixtures_dir, golden_dir,
                                                  flag):
     _check_cleaner_thresholds(fixtures_dir, golden_dir, tmp_path, tag, flag)
     assert pair_mode
+
+
+@pytest.mark.parametrize("tool", ["scoreChain", "chainNetRescore",
+                                  "chainCleaner", "chainCleanerNet"])
+def test_port_cli_hostnative_mode_matches_goldens(fixtures_dir, golden_dir,
+                                                  tmp_path, monkeypatch,
+                                                  tool):
+    """GAT_RESCORE=hostnative: the all-host scorer (the native LUT sums,
+    break loop, prescore and subset scores), run only when named; no -device
+    is given or resolved and no kernel wrapper is passed."""
+    monkeypatch.setenv("GAT_RESCORE", "hostnative")
+    argv, outputs = _tools(fixtures_dir, str(tmp_path))[tool]
+    perf_reset()
+    assert port_main(argv) == 0
+    assert PERF["dispatches"] == 0
+    for got, golden in outputs:
+        assert _read(got) == _read(os.path.join(golden_dir, golden))
+
+
+def test_default_device_raises_without_cuda(fixtures_dir, tmp_path):
+    """No fallback: without -device the tools ask for CUDA and raise here."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    argv, _ = _tools(fixtures_dir, str(tmp_path))["scoreChain"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_main(argv)

@@ -1,0 +1,194 @@
+"""The port's copies of the reference's jax-free layers stay copies.
+
+The port imports nothing of genomealignmenttools_tpu, so it keeps its own
+copy of every host layer it uses, at the same relative path.  This file
+holds each copy against the reference: a C++ source or header byte for
+byte (but for one comment line that named a directory of the machine the
+reference was written on), a Python module line for line.  The reference's modules import each
+other relatively, so a copy needs no import rewritten; the files that do
+differ are listed in DIFFERENCES, each intended difference by name with the
+lines of the REFERENCE file it replaces (1-based, inclusive; an insertion
+counts at the line it is inserted before), and the rest of the file is held
+equal.  A later change of either side then fails here, in one place.
+"""
+
+import difflib
+import os
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REF = os.path.join(REPO, "genomealignmenttools_tpu")
+PORT = os.path.join(REPO, "genomealignmenttools_tpu_torch")
+
+NATIVE_SOURCES = ["bandext.cpp", "breakloop.cpp", "chainblocks.cpp",
+                  "chaincodec.cpp", "hspscan.cpp", "netscan.cpp",
+                  "netsweep.cpp", "netwrite.cpp", "pairpack.cpp",
+                  "twobitdec.cpp", "gat_threads.h"]
+
+PYTHON_COPIES = (
+    [f"utils/{n}.py" for n in ("verbose", "bigmem", "kenthash", "pipeline",
+                               "bench_workload")]
+    + ["native/chain_io.py", "native/__init__.py", "device/genome.py"]
+    + [f"formats/{n}.py" for n in (
+        "__init__", "chain", "net", "axt", "psl", "maf", "lav", "nib",
+        "twobit", "chromsizes", "scorematrix", "gapcalc")]
+    + ["ops/band_ext.py", "ops/seed_extend.py"]
+    + [f"engines/{n}.py" for n in (
+        "scoring", "score_chain", "chain_net", "chain_cleaner", "chain_tools",
+        "chain_connect", "chain_bridge", "kd_chainer", "axt_chain",
+        "converters", "lav_tools", "maf_tools", "net_tools",
+        "net_filter_nonnested", "repeat_filler", "drivers")]
+    + ["cli/main.py"])
+
+# C++ source -> the lines (1-based) that differ, with the port's text
+NATIVE_DIFFERENCES = {
+    "hspscan.cpp": {5: "// RepeatFiller/patchChain, src/RepeatFiller.py:"
+                       "163-169 of the C reference):"},
+}
+
+# file -> {intended difference: [(first, last) line of the reference]}
+DIFFERENCES = {
+    "utils/bench_workload.py": {
+        "the C reference's file, without a machine's directory": [(322, 322)],
+    },
+    "native/__init__.py": {
+        "header note: the lock and the build directory": [(3, 5)],
+        "threading, and BUILD_DIR of the CUDA build": [(13, 13)],
+        "the library lives in the package's build/": [(15, 15)],
+        "_build: a g++ a source, temporary names, os.replace": [(31, 39)],
+        "get_lib under a lock": [(43, 44)],
+    },
+    "ops/seed_extend.py": {
+        "GapAligner takes the band DP's device": [(114, 115)],
+        "_band_batch returns the port's BandExtBatch": [(205, 210)],
+    },
+    "engines/score_chain.py": {
+        "device argument": [(32, 36)],
+        "scorer seam: torch_scorer_factory(device)": [(49, 52)],
+    },
+    "engines/chain_net.py": {
+        "device argument": [(862, 864)],
+        "scorer seam: torch_scorer_factory(device)": [(879, 880)],
+        "chain_net_main passes the CLI's device": [(1122, 1122),
+                                                    (1150, 1150)],
+    },
+    "engines/chain_cleaner.py": {
+        "device argument, handed down": [(1359, 1359), (1370, 1370),
+                                         (1387, 1387), (1406, 1406)],
+        "scorer seam: torch_scorer_factory(device)": [(1418, 1422)],
+        "chain_cleaner_main passes the CLI's device": [(1736, 1736),
+                                                        (1786, 1786)],
+        "clean_chains_distributed on torch.distributed": [(1846, 1866)],
+    },
+    "engines/repeat_filler.py": {
+        "device argument, to the gap aligner": [(253, 255), (307, 307)],
+        "repeat_filler_main passes the CLI's device": [(331, 331),
+                                                        (403, 403)],
+    },
+    "engines/drivers.py": {
+        "patch_chain: device argument, to the gap aligner": [(193, 195),
+                                                             (229, 229)],
+        "job scripts run the port's CLI": [(323, 323)],
+        "filter_chains_net_filter_nets: device, to chain_net": [
+            (356, 358), (377, 377), (399, 399), (423, 423), (456, 456)],
+    },
+    "cli/main.py": {
+        "header note: the port's CLI and its -device": [(3, 8)],
+        "device commands take the device": [
+            (32, 32), (52, 52), (113, 120), (133, 135), (512, 512),
+            (566, 570), (587, 587)],
+        "job scripts carry -device": [(535, 535)],
+        "main: -device, DEVICE_COMMANDS, the torch trace": [(747, 750),
+                                                            (774, 775)],
+    },
+}
+
+
+def _lines(path):
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+@pytest.mark.parametrize("name", NATIVE_SOURCES)
+def test_native_source_is_byte_identical(name):
+    with open(os.path.join(REF, "native", name), "rb") as a, \
+            open(os.path.join(PORT, "native", name), "rb") as b:
+        ref, port = a.read(), b.read()
+    differs = NATIVE_DIFFERENCES.get(name, {})
+    if not differs:
+        assert ref == port
+        return
+    ref_lines, port_lines = ref.split(b"\n"), port.split(b"\n")
+    assert len(ref_lines) == len(port_lines)
+    for k, (r, p) in enumerate(zip(ref_lines, port_lines), start=1):
+        if k in differs:
+            assert p.decode() == differs[k] and r != p
+        else:
+            assert r == p, f"{name}:{k}"
+
+
+def test_every_native_source_is_copied():
+    """The list above is the reference loader's own list of sources."""
+    ref_sources = sorted(n for n in os.listdir(os.path.join(REF, "native"))
+                         if n.endswith((".cpp", ".h")))
+    assert ref_sources == sorted(NATIVE_SOURCES)
+    port_sources = sorted(n for n in os.listdir(os.path.join(PORT, "native"))
+                          if n.endswith((".cpp", ".h")))
+    assert port_sources == ref_sources
+
+
+def _inside(tag, i1, i2, ranges):
+    """Is the opcode over reference lines [i1, i2) (0-based) inside one of
+    the 1-based inclusive ranges?"""
+    if tag == "insert":
+        return any(lo <= i1 + 1 <= hi + 1 for lo, hi in ranges)
+    return any(lo <= i1 + 1 and i2 <= hi for lo, hi in ranges)
+
+
+@pytest.mark.parametrize("rel", PYTHON_COPIES)
+def test_python_copy_equals_the_reference(rel):
+    ref, port = _lines(os.path.join(REF, rel)), _lines(os.path.join(PORT, rel))
+    named = DIFFERENCES.get(rel, {})
+    changed = [(tag, i1, i2, j1, j2) for tag, i1, i2, j1, j2 in
+               difflib.SequenceMatcher(None, ref, port,
+                                       autojunk=False).get_opcodes()
+               if tag != "equal"]
+    every = [r for ranges in named.values() for r in ranges]
+    stray = [(tag, f"reference lines {i1 + 1}-{i2}", port[j1:j2])
+             for tag, i1, i2, j1, j2 in changed
+             if not _inside(tag, i1, i2, every)]
+    assert not stray, f"{rel} differs from the reference outside the " \
+                      f"intended differences: {stray}"
+    # and no entry of the dictionary has gone stale
+    for what, ranges in named.items():
+        for r in ranges:
+            assert any(_inside(tag, i1, i2, [r])
+                       for tag, i1, i2, _, _ in changed), \
+                f"{rel}: nothing differs at {r} ({what})"
+
+
+def test_every_engine_and_format_is_copied():
+    """The copies are whole layers: every module of the reference's
+    engines/ and formats/ has its counterpart in the list."""
+    for layer in ("engines", "formats"):
+        ref_modules = sorted(n for n in os.listdir(os.path.join(REF, layer))
+                             if n.endswith(".py") and n != "__init__.py")
+        listed = sorted(os.path.basename(p) for p in PYTHON_COPIES
+                        if p.startswith(layer + "/")
+                        and not p.endswith("__init__.py"))
+        assert listed == ref_modules
+
+
+@pytest.mark.parametrize("rel,first,last", [
+    ("utils/profiling.py", 24, 70),         # the phase timers
+    ("parallel/distributed.py", 56, 65),    # shard_indices
+    ("ops/rescore.py", 36, 42),             # _n_threads
+    ("ops/rescore.py", 596, 710),           # the jax-free tail
+])
+def test_copied_passage_is_the_reference_s(rel, first, last):
+    """Passages copied into modules the port wrote itself: the reference's
+    lines first..last stand in the port's module unchanged."""
+    passage = "\n".join(_lines(os.path.join(REF, rel))[first - 1:last])
+    with open(os.path.join(PORT, rel)) as f:
+        assert passage in f.read()

@@ -19,6 +19,7 @@ import torch.distributed as dist
 
 from conftest import hermetic_cpu_env
 from genomealignmenttools_tpu_torch.parallel import distributed as pd
+from genomealignmenttools_tpu_torch.parallel.mesh import make_mesh
 
 _WORKER = r"""
 import os, sys
@@ -42,7 +43,7 @@ if tool == "scoreChain":
         with open(out, "w") as fh:
             fh.write(merged)
 else:
-    from genomealignmenttools_tpu.utils.verbose import set_verbosity
+    from genomealignmenttools_tpu_torch.utils.verbose import set_verbosity
     from genomealignmenttools_tpu_torch.engines.chain_cleaner import \
         clean_chains_distributed
     set_verbosity(0)
@@ -53,7 +54,9 @@ else:
         t_sizes=f("target.chrom.sizes"), q_sizes=f("query.chrom.sizes"),
         linear_gap="loose")
 loaded = sorted(m for m in sys.modules
-                if m == "jax" or m.startswith(("jax.", "jaxlib")))
+                if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                or m == "genomealignmenttools_tpu"
+                or m.startswith("genomealignmenttools_tpu."))
 print("LOADED", loaded)
 print("WORKER_OK", me, flush=True)
 """
@@ -152,7 +155,7 @@ def test_init_distributed_single_process_and_backend(monkeypatch):
     pd.init_distributed("gloo")
     assert not dist.is_initialized()
     assert pd.world() == (1, 0)
-    assert pd.hosts_chips_mesh(["cpu"] * 2) == (1, pd.make_mesh(
+    assert pd.hosts_chips_mesh(["cpu"] * 2) == (1, make_mesh(
         devices=["cpu"] * 2))
     # more than one process: the backend must be named, never guessed
     for backend in (None, "mpi"):

@@ -1,6 +1,6 @@
 """The gap-filling slice of the port on the CPU, byte for byte.
 
-TorchGapAligner against the reference GapAligner on the planted cases;
+The port's GapAligner against the reference GapAligner on the planted cases;
 the port's repeat_filler and patch_chain against the RepeatFiller golden
 and the reference engines; the port CLI's RepeatFiller and patchChain with
 -device=cpu against the reference CLI.  Every comparison is exact, and each
@@ -26,7 +26,8 @@ from genomealignmenttools_tpu_torch.device import PERF, perf_reset
 from genomealignmenttools_tpu_torch.engines.drivers import patch_chain
 from genomealignmenttools_tpu_torch.engines.repeat_filler import \
     repeat_filler
-from genomealignmenttools_tpu_torch.ops.seed_extend import TorchGapAligner
+from genomealignmenttools_tpu_torch.ops.seed_extend import \
+    GapAligner as PortGapAligner
 from make_planted import build_case
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -70,7 +71,7 @@ def test_torch_gap_aligner_matches_reference_on_planted(case):
     want = GapAligner(sch.lut, **kw).align(t, q, 0, t.shape[0], 0,
                                            q.shape[0])
     perf_reset()
-    got = TorchGapAligner(sch.lut, device="cpu", **kw).align(
+    got = PortGapAligner(sch.lut, device="cpu", **kw).align(
         t, q, 0, t.shape[0], 0, q.shape[0])
     assert got == want
     assert (PERF["band_problems"] > 0) == bool(want)
@@ -143,8 +144,9 @@ def test_port_cli_matches_reference_cli(fixtures_dir, golden_dir, tmp_path,
 
 
 def test_patch_chain_job_scripts_are_forwarded(fixtures_dir, tmp_path):
-    """The 5-argument mode writes job scripts that run the reference CLI;
-    the port hands it to the reference unchanged."""
+    """The 5-argument mode writes job scripts; nothing is forwarded any
+    more: the port writes them itself, and they run the port's CLI on the
+    device the caller named."""
     jobs = tmp_path / "jobs"
     perf_reset()
     assert port_main(["patchChain", *_pc_inputs(fixtures_dir),
@@ -152,16 +154,42 @@ def test_patch_chain_job_scripts_are_forwarded(fixtures_dir, tmp_path):
                       f"-jobList={tmp_path / 'jobList'}", "-numJobs=2",
                       "-device=cpu"]) == 0
     assert PERF["band_problems"] == 0
-    assert len((tmp_path / "jobList").read_text().split("\n")) >= 2
+    scripts = (tmp_path / "jobList").read_text().split()
+    assert len(scripts) == 2
+    for path in scripts:
+        with open(path) as f:
+            text = f.read()
+        assert "genomealignmenttools_tpu_torch.cli.main patchChain" in text
+        assert "genomealignmenttools_tpu.cli.main" not in text
+        assert "-device=cpu" in text and "-numShards=2" in text
 
 
 def test_gap_fill_refusals(fixtures_dir, tmp_path, monkeypatch):
     chain, t2, q2, ts, qs = _pc_inputs(fixtures_dir)
     assert port_main(["patchChain", chain, t2, "-device=cpu"]) == 255
-    monkeypatch.setenv("GAT_BAND", "host")
+    monkeypatch.setenv("GAT_BAND", "pallas")
     with pytest.raises(ValueError, match="GAT_BAND"):
         port_main(["RepeatFiller", "-c", chain, "-T2", t2, "-Q2", q2,
                    "-o", str(tmp_path / "o"), "-device=cpu"])
     with pytest.raises(ValueError, match="GAT_BAND"):
         port_main(["patchChain", chain, t2, q2, ts, qs,
                    str(tmp_path / "o.psl"), "-device=cpu"])
+
+
+@pytest.mark.parametrize("tool", ["RepeatFiller", "patchChain"])
+def test_host_band_batch_runs_only_when_named(fixtures_dir, tmp_path,
+                                              monkeypatch, tool):
+    """GAT_BAND=host runs the port's copy of the host band batch: the
+    reference CLI's bytes, no problem through the torch band wrapper, and
+    no device resolved (the default -device would raise here)."""
+    chain, t2, q2, ts, qs = _pc_inputs(fixtures_dir)
+    argv = {"RepeatFiller": ["RepeatFiller", "-c", chain, "-T2", t2, "-Q2",
+                             q2, "-o"],
+            "patchChain": ["patchChain", chain, t2, q2, ts, qs]}[tool]
+    port_out, ref_out = str(tmp_path / "port"), str(tmp_path / "ref")
+    monkeypatch.setenv("GAT_BAND", "host")
+    perf_reset()
+    assert port_main(argv + [port_out]) == 0
+    assert PERF["band_problems"] == 0
+    assert jax_main(argv + [ref_out]) == 0
+    assert _read(port_out) == _read(ref_out) and _read(port_out)

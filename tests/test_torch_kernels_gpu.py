@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
 Every test here needs a CUDA card and skips without one.  This file imports
-nothing of jax, so it also runs where jax is not installed:
+only the port (its oracles are the port's own copies of the numpy layers), so
+it also runs where jax is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \\
         tests/test_torch_kernels_gpu.py
@@ -13,15 +14,18 @@ import numpy as np
 import pytest
 import torch
 
-from band_cases import N_KERNEL_CASES, kernel_cases, outcome, raw_inputs
+from band_cases import (N_INSTANTIATION_CASES, N_KERNEL_CASES,
+                        instantiation_cases, kernel_cases, outcome,
+                        raw_inputs)
 from combine_cases import combine_case, edge_chains, random_chains
-from genomealignmenttools_tpu.device.genome import Genome, revcomp_codes
-from genomealignmenttools_tpu.formats.chain import read_chains
-from genomealignmenttools_tpu.formats.gapcalc import gap_calc_from_file
-from genomealignmenttools_tpu.formats.scorematrix import score_scheme_default
-from genomealignmenttools_tpu.ops.band_ext import band_ext
 from genomealignmenttools_tpu_torch.device import LAUNCHES
+from genomealignmenttools_tpu_torch.device.genome import Genome, revcomp_codes
+from genomealignmenttools_tpu_torch.formats.chain import read_chains
+from genomealignmenttools_tpu_torch.formats.gapcalc import gap_calc_from_file
+from genomealignmenttools_tpu_torch.formats.scorematrix import \
+    score_scheme_default
 from genomealignmenttools_tpu_torch.ops import band_batch as bb
+from genomealignmenttools_tpu_torch.ops.band_ext import band_ext
 from genomealignmenttools_tpu_torch.ops import pair_combine as pc
 from genomealignmenttools_tpu_torch.ops import window_rescore as wr
 from genomealignmenttools_tpu_torch.ops.pair_rescore import \
@@ -30,6 +34,7 @@ from genomealignmenttools_tpu_torch.ops.rescore import TorchChainScorer
 from genomealignmenttools_tpu_torch.parallel.dryrun import dryrun_multidevice
 from genomealignmenttools_tpu_torch.parallel.mesh import (
     ShardedBlockScorer, ShardedChainScorer, ShardedPairScorer)
+from rescore_cases import alignment_case, direct_sums
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures")
@@ -78,6 +83,51 @@ def test_rescore_chunks_kernel_matches_plain(cuda_device, strand):
                         *[torch.from_numpy(a) for a in (t_off, q_off,
                                                         length)])
     assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view", ["whole", "offset views"])
+def test_rescore_chunks_kernel_every_alignment(cuda_device, view):
+    """Every (t_off mod 16, q_off mod 16) pair at the lengths 0, 1, 15, 16,
+    17, 255 and 256, and chunks that end at the last byte of a genome: K1's
+    16-byte loads against the plain version and the definition.  As offset
+    views, the code tensors themselves start off a 16-byte boundary."""
+    t, q, t_off, q_off, length = alignment_case()
+    want = direct_sums(t, q, LUT.numpy(), t_off, q_off, length)
+    if view == "offset views":
+        t, q, t_off, q_off = t[3:], q[9:], t_off - 3, q_off - 9
+        keep = (t_off >= 0) & (q_off >= 0)
+        t_off, q_off, length, want = (a[keep] for a in (t_off, q_off, length,
+                                                        want))
+        t_card = torch.from_numpy(np.concatenate(
+            [np.full(3, 9, np.uint8), t])).to(cuda_device)[3:]
+        q_card = torch.from_numpy(np.concatenate(
+            [np.full(9, 9, np.uint8), q])).to(cuda_device)[9:]
+    else:
+        t_card = torch.from_numpy(t).to(cuda_device)
+        q_card = torch.from_numpy(q).to(cuda_device)
+    chunks = [torch.from_numpy(a).to(cuda_device)
+              for a in (t_off, q_off, length)]
+    got = wr.chunk_sums(t_card, q_card, LUT, *chunks)
+    plain = wr.chunk_sums_plain(t_card, q_card, LUT, *chunks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+    assert np.array_equal(got.cpu().numpy().astype(np.int64), want)
+
+
+@pytest.mark.gpu
+def test_rescore_chunks_kernel_any_byte_is_n(cuda_device):
+    """A code >= 4, whatever the byte, scores 0 on either side."""
+    t, q, t_off, q_off, length = _chunks(9, n=20_000)
+    rng = np.random.default_rng(10)
+    for codes in (t, q):
+        at = rng.integers(0, codes.shape[0], 5_000)
+        codes[at] = rng.integers(4, 256, at.shape[0]).astype(np.uint8)
+    card = [torch.from_numpy(a).to(cuda_device)
+            for a in (t, q, t_off, q_off, length)]
+    got = wr.chunk_sums(card[0], card[1], LUT, *card[2:])
+    assert torch.equal(got, wr.chunk_sums_plain(card[0], card[1], LUT,
+                                                *card[2:]))
 
 
 @pytest.mark.gpu
@@ -175,6 +225,26 @@ def test_band_ext_kernel_matches_plain(cuda_device, case):
     assert meta.dtype == torch.int32 and meta.device == cuda_device
     plain = bb.band_ext_plain(*args, mat, global_mode, gap_open, gap_extend,
                               mi)
+    assert torch.equal(meta, plain[0]) and torch.equal(moves, plain[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(N_INSTANTIATION_CASES))
+def test_band_ext_kernel_every_instantiation(cuda_device, case):
+    """K3 == band_ext_plain at a max_insert of every cells-per-lane count (1
+    to 8, one instantiation of the kernel each), in both modes."""
+    sets = instantiation_cases()
+    assert len(sets) == N_INSTANTIATION_CASES
+    assert {bb.parent_layout(s[4])[0] for s in sets} == set(range(1, 9))
+    _label, global_mode, gap_open, gap_extend, mi, probs = sets[case]
+    mat = bb.BandExtBatch(global_mode, score_scheme_default().char_matrix(),
+                          gap_open, gap_extend, mi, device=cuda_device).mat
+    args = raw_inputs(probs, cuda_device)
+    meta, moves = bb.band_ext_cuda(*args, mat, global_mode, gap_open,
+                                   gap_extend, mi)
+    plain = bb.band_ext_plain(*args, mat, global_mode, gap_open, gap_extend,
+                              mi)
+    torch.cuda.synchronize()
     assert torch.equal(meta, plain[0]) and torch.equal(moves, plain[1])
 
 

@@ -232,7 +232,12 @@ def test_rescore_mode_is_checked(setup, monkeypatch):
     port = TorchChainScorer(*setup, device=CPU)
     assert isinstance(port._dev, port_pair.TorchPairBlockScorer)
     assert port._dev.host_native is False
-    for mode in ("hostnative", "xla", "Pair"):
+    # the host-native scorer runs when named, whatever the device says
+    monkeypatch.setenv("GAT_RESCORE", "hostnative")
+    port = TorchChainScorer(*setup, device=None)
+    assert isinstance(port._dev, port_pair.TorchPairBlockScorer)
+    assert port._dev.host_native is True and str(port.device) == CPU
+    for mode in ("xla", "Pair"):
         monkeypatch.setenv("GAT_RESCORE", mode)
         with pytest.raises(ValueError, match="ROADMAP.md"):
             TorchChainScorer(*setup, device=CPU)
@@ -262,7 +267,7 @@ def test_pack_refuses_chunks_outside_the_genome(setup):
 
 def test_pack_without_native_library(setup, chain_sets, monkeypatch):
     """GAT_NATIVE=0: the numpy packer writes the same tiles."""
-    import genomealignmenttools_tpu.native as nat
+    import genomealignmenttools_tpu_torch.native as nat
     scheme, _, t_genome, q_genome = setup
     jobs, _, _ = _jobs(setup, chain_sets["random"])
     native = port_pair.TorchPairBlockScorer(

@@ -121,7 +121,7 @@ def test_score_table_matches_pallas_and_host(setup, fixtures_dir,
 
 def test_score_chains_without_native_library(setup, chain_sets, monkeypatch):
     """GAT_NATIVE=0: numpy combine in score_chains, score_table declines."""
-    import genomealignmenttools_tpu.native as nat
+    import genomealignmenttools_tpu_torch.native as nat
     monkeypatch.setenv("GAT_NATIVE", "0")
     monkeypatch.setattr(nat, "_tried", False)
     monkeypatch.setattr(nat, "_lib", None)

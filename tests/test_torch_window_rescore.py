@@ -19,6 +19,7 @@ from genomealignmenttools_tpu.ops import pallas_rescore
 from genomealignmenttools_tpu.ops.rescore import DeviceGenomeCache
 from genomealignmenttools_tpu_torch.ops import window_rescore as wr
 from genomealignmenttools_tpu_torch.ops.rescore import TorchGenomeCache
+from rescore_cases import LENGTHS, alignment_case, direct_sums
 
 LUT = np.asarray(score_scheme_default().lut)
 CPU = torch.device("cpu")
@@ -209,3 +210,40 @@ def test_checked_lut_needs_zero_n_row_and_int8():
     big[0, 0] = 300
     with pytest.raises(ValueError, match="int8"):
         wr.checked_lut(big)
+
+
+@pytest.mark.parametrize("length", LENGTHS)
+def test_plain_version_on_every_alignment(length):
+    """The case set K1's 16-byte loads are held on (every (t_off mod 16,
+    q_off mod 16) pair, chunks that end at a genome's last byte), through
+    the plain version on the CPU against the definition, one length at a
+    time."""
+    t, q, t_off, q_off, ln = alignment_case()
+    keep = ln == length
+    assert keep.sum() >= 256 + 48
+    pairs = {(int(a) % 16, int(b) % 16) for a, b in zip(t_off[keep],
+                                                        q_off[keep])}
+    assert len(pairs) == 256
+    assert (t_off[keep] + length == t.shape[0]).any()
+    assert (q_off[keep] + length == q.shape[0]).any()
+    lut = wr.checked_lut(score_scheme_default().lut)
+    got = wr.chunk_sums(torch.from_numpy(t), torch.from_numpy(q), lut,
+                        *[torch.from_numpy(a[keep]) for a in (t_off, q_off,
+                                                              ln)])
+    want = direct_sums(t, q, lut.numpy(), t_off[keep], q_off[keep], ln[keep])
+    assert np.array_equal(got.numpy().astype(np.int64), want)
+
+
+def test_plain_version_any_byte_is_n():
+    """A code >= 4, whatever the byte, scores 0 (K1 flags any such byte)."""
+    t, q, t_off, q_off, ln = alignment_case()
+    rng = np.random.default_rng(3)
+    t, q = t.copy(), q.copy()
+    for codes in (t, q):
+        at = rng.integers(0, codes.shape[0], 3000)
+        codes[at] = rng.integers(4, 256, at.shape[0]).astype(np.uint8)
+    lut = wr.checked_lut(score_scheme_default().lut)
+    got = wr.chunk_sums(torch.from_numpy(t), torch.from_numpy(q), lut,
+                        *[torch.from_numpy(a) for a in (t_off, q_off, ln)])
+    assert np.array_equal(got.numpy().astype(np.int64),
+                          direct_sums(t, q, lut.numpy(), t_off, q_off, ln))
