@@ -16,8 +16,10 @@ Layout (counterparts in genomealignmenttools_tpu/):
                           ctypes (native/__init__.py:31-58 pattern)
   csrc/rescore.cu         K1, the chunk-sum kernel for sm_90a
                           (ops/pallas_rescore.py:43-136 _rescore_kernel)
-  csrc/combine.cu         K2, the segmented combine for sm_90a
-                          (ops/pallas_combine.py:112-147 _combine_kernel)
+  csrc/combine.cu         K2, the segmented combine fused with the int8
+                          row sums, for sm_90a (ops/pallas_combine.py:
+                          112-147 _combine_kernel; the row sum of
+                          ops/pair_rescore.py:748-761 _fused_pass)
   csrc/band.cu            K3, the batched wandering-band extension DP for
                           sm_90a (ops/pallas_band.py:63-340, the inner
                           `kernel` of _build_kernel)
@@ -28,7 +30,8 @@ Layout (counterparts in genomealignmenttools_tpu/):
                           device_timer, the reference's phase timers)
   ops/window_rescore.py   chunking, plain PyTorch K1, the kernel wrapper,
                           WindowBlockScorer (ops/pallas_rescore.py)
-  ops/pair_combine.py     K2's wrapper, its tiled plain version, the finish
+  ops/pair_combine.py     K2's wrappers (from int8 tiles, from int32 sums),
+                          their tiled plain versions, the finish
                           (ops/pallas_combine.py)
   ops/pair_rescore.py     int8 score tiles resident on the device,
                           TorchPairBlockScorer (also host-native),

@@ -126,7 +126,17 @@ def load_library() -> ctypes.CDLL:
         p, p, p,                              # s, bias, flags (int32, device)
         ctypes.c_int64,                       # number of chunks
         p, p,                                 # c, w (int32, device)
-        p,                                    # scratch (int32, device)
+        p,                                    # scratch (int64, device)
+        p,                                    # cudaStream_t
+    ]
+    lib.gat_pair_combine_tiles.restype = ctypes.c_int
+    lib.gat_pair_combine_tiles.argtypes = [
+        p, ctypes.c_int,                      # tiles (int8, device), chunk
+        p,                                    # tweak (int32, device) or None
+        p, p,                                 # bias, flags (int32, device)
+        ctypes.c_int64,                       # number of chunks
+        p, p,                                 # c, w (int32, device)
+        p,                                    # scratch (int64, device)
         p,                                    # cudaStream_t
     ]
     lib.gat_pair_combine_scratch.restype = ctypes.c_int64

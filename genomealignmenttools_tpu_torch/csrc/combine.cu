@@ -1,8 +1,11 @@
-// K2: the segmented combine of pair-mode chain rescoring, for sm_90a.
+// K2: the segmented combine of pair-mode chain rescoring, fused with the int8
+// row sums that feed it, in one pass, for sm_90a.
 //
 // Replaces genomealignmenttools_tpu/ops/pallas_combine.py::_combine_kernel
 // (body pallas_combine.py:112-147, launched by pair_combine_scan, pallas_call
-// at pallas_combine.py:166).
+// at pallas_combine.py:166) together with the row sum that feeds it in the
+// reference's one-dispatch pass, pair_rescore.py::_fused_pass (:748-761:
+// _chunk_sums_i32_scored, the combine, then the finish).
 //
 // What it computes.  Over M chunks with int32 sums s, gap biases and flags
 // (F_START = 1 chain start, F_FIRST = 2 block first, F_SAMPLE = 4 block
@@ -15,42 +18,50 @@
 // with I32_MIN = -(2^31) + 1, the Pallas kernel's sentinel
 // (pallas_combine.py:49-50), and the same identities (0, I32_MAX, I32_MIN)
 // where a scan starts.  Arithmetic is int32 and wraps as the Pallas kernel's
-// does.  The caller's int32 guard (TorchPairChainScorer._meta: per chain,
-// aliBases * 127 + gap-cost total < 2^31) bounds every prefix of every chain,
-// so no partial sum wraps in practice.  The sum scan's carry is never added
-// across a real reset: a tile's carry reaches only the elements before the
-// tile's first F_START, so each chain's sums start from 0.
+// does.  Two sources of s share the scans: gat_pair_combine takes s as int32;
+// gat_pair_combine_tiles takes the (M, chunk) int8 score tiles and makes s as
+// each row's int32 sum plus an optional int32 tweak read from the device.
+// Chunks at or past M read as s = bias = flags = 0: inert, they continue the
+// last chain and are never written.
 //
-// What bounds it.  Per chunk the passes below read s, bias and flags two or
-// three times and c twice, and write c, runmin and w: about 60 bytes against
-// a few dozen integer and shuffle operations.  At the main path's sizes
-// (millions of chunks) that is device memory and the seven launches'
-// latency, not arithmetic.
+// What bounds it.  At the default width a chunk is a 128-byte tile row read
+// once, 8 bytes of bias and flags read once and 8 bytes of c and w written:
+// 144 bytes against 32 dp4a and a few dozen integer and shuffle operations.
+// At the main path's sizes (millions of chunks) that is device memory.
 //
-// What the design does about that, and the cross-tile design.  The TPU
-// kernel carries three int32 values through SMEM from one grid step to the
-// next, because its grid runs in order (pallas_combine.py:121-147).  CUDA
-// blocks run in no order, so that does not carry over.  Once its input is
-// materialised each scan is an associative scan over (reset flag, value)
-// pairs,
-//     (f1, v1) . (f2, v2) = (f1 | f2, f2 ? v2 : op(v1, v2)),  op in {+, min, max},
-// so each runs as reduce-then-scan over tiles of kTile chunks, one thread
-// per chunk: (A) each tile's aggregate, (B) one block scans the aggregates
-// into inclusive per-tile prefixes, (C) each tile scans itself seeded with
-// the prefix of the tiles before it.  Within a tile, warp shuffles scan each
-// warp and shared memory holds the 32 warps' aggregates, which warp 0 scans.
-// Each scan's elementwise producer is fused into the pass before it: m is
-// made from (c, s, flags) where c is made, and sampled from (c, runmin,
-// flags) where runmin is made.  Seven launches:
-//     A1 (s - bias), B, C1 + A2 (c, then m), B, C2 + A3 (runmin, then
-//     sampled), B, C3 (w).
-// Reduce-then-scan rather than a single-pass chained scan: the aggregates of
-// scans 2 and 3 depend on the carries of the scans before them, so a chained
-// scan would serialise every tile on its predecessor's three carries;
-// reduce-then-scan needs no spinning and no atomics, and gives the same
-// result in any block order.  The wrapper allocates the scratch: runmin (M
-// int32) and three arrays of one int32 per tile (aggregate value, aggregate
-// flag, inclusive prefix), reused by the three scans in stream order.
+// What the design does about that.
+// - One launch reads each tile byte once.  At chunk 128 eight lanes take a
+//   row, 16 bytes a lane (streaming loads, neighbouring lanes on neighbouring
+//   addresses: a warp-step reads four rows, 512 contiguous bytes), kUnroll
+//   steps in flight; __dp4a(word, 0x01010101, acc) adds four signed bytes into
+//   int32 exactly and three xor-shuffles finish the row.  Any other even width
+//   from 2 to 258 takes a row a thread with 2-byte loads: right, not tuned.
+// - A single-pass chained scan with decoupled look-back (Merrill and Garland,
+//   "Single-pass Parallel Prefix Scan with Decoupled Look-back", 2016) in
+//   place of reduce-then-scan's seven launches.  A block takes its tile number
+//   from an atomic ticket, not blockIdx, so every lower tile belongs to a
+//   block that is already running.  For each scan a thread scans its kItems
+//   chunks in registers, warp shuffles scan the threads, warp 0 scans the
+//   warps; one thread publishes the tile's aggregate (status A), looks back
+//   over the lower tiles' words until it meets an inclusive prefix (status P)
+//   or an aggregate that holds a chain start (a reset makes everything before
+//   it irrelevant, so the walk is short), and publishes the tile's inclusive
+//   prefix.  Value, reset flag and status share one 64-bit word, published by
+//   one relaxed store.  Scan 2's input needs scan 1's carry and scan 3's needs
+//   scan 2's, so a tile resolves them in that order; it waits only on lower
+//   tiles, never the reverse: no deadlock in any block order.
+// - No atomic touches a value, only the ticket, and integer scans are
+//   associative: the bits do not depend on which block ran when.
+// - bias, flags and the row sums are staged through shared memory (coalesced
+//   in, consecutive per thread out), c and w staged back (coalesced stores):
+//   no alignment is asked of bias, flags, s, c or w, and the ragged last tile
+//   is masked.
+// - 512 threads of 4 chunks (a tile of 2,048), 40 registers: three blocks,
+//   1,536 threads a SM.  Of the shapes measured at the chr1 resident pass
+//   (experiments/kernel_experiments.py k2) it was the fastest; 256 threads of
+//   8 chunks (64 registers: 1,024 threads a SM) took 6% longer.
+// The wrapper allocates c, w and the scratch: a ticket and three status words
+// a tile, zeroed by torch on the stream before every launch.
 
 #include <cstdint>
 
@@ -58,13 +69,21 @@
 
 namespace {
 
-constexpr int kTile = 1024;  // chunks per tile = threads per block (pair_combine.TILE)
-constexpr int kWarps = kTile / 32;
+constexpr int kThreads = 512;
+constexpr int kItems = 4;                  // chunks a thread
+constexpr int kTile = kThreads * kItems;   // chunks a tile (pair_combine.TILE)
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;                 // row-sum warp-steps in flight
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int32_t kStart = 1;
 constexpr int32_t kFirst = 2;
 constexpr int32_t kSample = 4;
 constexpr int32_t kI32Max = 2147483647;
 constexpr int32_t kI32Min = -2147483647;  // -(2^31) + 1, not INT32_MIN
+constexpr uint64_t kAggregate = 1;        // status of a tile's word; 0 = not yet
+constexpr uint64_t kPrefix = 2;
+
+static_assert(kItems % 4 == 0, "items are moved four at a time");
 
 __device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) +
@@ -109,42 +128,110 @@ template <class Op>
 __device__ __forceinline__ Seg warp_scan(Seg x, int lane) {
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const Seg up{__shfl_up_sync(0xffffffffu, x.v, d),
-                 __shfl_up_sync(0xffffffffu, x.f, d)};
+    const Seg up{__shfl_up_sync(kFull, x.v, d), __shfl_up_sync(kFull, x.f, d)};
     if (lane >= d) x = combine<Op>(up, x);
   }
   return x;
 }
 
-// Block-wide inclusive segmented scan, one element per thread, seeded with
-// `carry`, the scan's value just before the tile.  Returns this thread's
-// scanned value and sets *tile to the tile's own aggregate (without the
-// carry).  Every thread of the block calls it.
+// The exclusive form of a warp's inclusive scan.
 template <class Op>
-__device__ int32_t block_scan(Seg x, int32_t carry, Seg* warp_aggs,
-                              Seg* tile) {
+__device__ __forceinline__ Seg warp_exclusive(Seg inc, int lane) {
+  const Seg up{__shfl_up_sync(kFull, inc.v, 1), __shfl_up_sync(kFull, inc.f, 1)};
+  return lane == 0 ? Seg{Op::kIdentity, 0} : up;
+}
+
+__device__ __forceinline__ uint64_t pack_status(uint64_t status, Seg x) {
+  return (status << 33) | (static_cast<uint64_t>(x.f & 1) << 32) |
+         static_cast<uint32_t>(x.v);
+}
+
+__device__ __forceinline__ void store_status(uint64_t* p, uint64_t word) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(word) : "memory");
+}
+
+__device__ __forceinline__ uint64_t load_status(const uint64_t* p) {
+  uint64_t word;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(word) : "l"(p) : "memory");
+  return word;
+}
+
+// The scan's value just before tile `tile` (> 0): the lower tiles' words,
+// nearest first, composed until an inclusive prefix or an aggregate with a
+// reset.  Tile 0 publishes its prefix at once, so the walk ends there at the
+// latest.
+template <class Op>
+__device__ Seg look_back(const uint64_t* status, int tile) {
+  Seg acc{Op::kIdentity, 0};
+  for (int j = tile - 1; j >= 0; --j) {
+    uint64_t word;
+    while (((word = load_status(status + j)) >> 33) == 0) {
+    }
+    const Seg x{static_cast<int32_t>(static_cast<uint32_t>(word)),
+                static_cast<int32_t>((word >> 32) & 1)};
+    acc = combine<Op>(x, acc);
+    if ((word >> 33) == kPrefix || x.f) break;
+  }
+  return acc;
+}
+
+struct Shared {
+  alignas(16) int32_t s[kTile];
+  alignas(16) int32_t bias[kTile];
+  alignas(16) int32_t flags[kTile];
+  Seg warp_inc[kWarps];
+  Seg warp_exc[kWarps];
+  Seg carry;
+  int tile;
+};
+
+// One of the three scans over the tile.  v holds this thread's kItems
+// inputs and gets their scanned values; reset[j] is 1 at a chain start;
+// status holds this scan's word for every tile.  Every thread calls it.
+template <class Op>
+__device__ void scan_tile(int32_t (&v)[kItems], const int32_t (&reset)[kItems],
+                          uint64_t* status, int tile, Shared& sh) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  Seg inc = warp_scan<Op>(x, lane);
-  if (lane == 31) warp_aggs[warp] = inc;
+  Seg acc{Op::kIdentity, 0};
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    acc = combine<Op>(acc, Seg{v[j], reset[j]});
+    v[j] = acc.v;
+  }
+  const Seg inc = warp_scan<Op>(acc, lane);
+  const Seg exc = warp_exclusive<Op>(inc, lane);
+  if (lane == 31) sh.warp_inc[warp] = inc;
   __syncthreads();
-  if (warp == 0) warp_aggs[lane] = warp_scan<Op>(warp_aggs[lane], lane);
+  if (warp == 0) {
+    const Seg x = lane < kWarps ? sh.warp_inc[lane] : Seg{Op::kIdentity, 0};
+    const Seg xi = warp_scan<Op>(x, lane);
+    const Seg xe = warp_exclusive<Op>(xi, lane);
+    if (lane < kWarps) sh.warp_exc[lane] = xe;
+    if (lane == kWarps - 1) {   // xi is the tile's aggregate
+      Seg carry{Op::kIdentity, 0};
+      if (tile == 0) {
+        store_status(status, pack_status(kPrefix, xi));
+      } else {
+        store_status(status + tile, pack_status(kAggregate, xi));
+        carry = look_back<Op>(status, tile);
+        store_status(status + tile,
+                     pack_status(kPrefix, combine<Op>(carry, xi)));
+      }
+      sh.carry = carry;
+    }
+  }
   __syncthreads();
-  if (warp > 0) inc = combine<Op>(warp_aggs[warp - 1], inc);
-  *tile = warp_aggs[kWarps - 1];
-  __syncthreads();  // warp_aggs is reused by the next call
-  return inc.f ? inc.v : Op::apply(carry, inc.v);
-}
-
-__device__ __forceinline__ int64_t chunk_index() {
-  return static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x;
-}
-
-// The scan's value before this block's tile: the inclusive prefix of the
-// tiles before it, or the identity for the first tile.
-template <class Op>
-__device__ __forceinline__ int32_t tile_carry(const int32_t* incl) {
-  return blockIdx.x > 0 ? incl[blockIdx.x - 1] : Op::kIdentity;
+  // the scan's value just before this thread's first chunk
+  const Seg pre = combine<Op>(combine<Op>(sh.carry, sh.warp_exc[warp]), exc);
+  int32_t seen = 0;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    seen |= reset[j];
+    if (!seen) v[j] = Op::apply(pre.v, v[j]);
+  }
 }
 
 __device__ __forceinline__ int32_t m_of(int32_t c, int32_t s, int32_t fl) {
@@ -158,164 +245,207 @@ __device__ __forceinline__ int32_t sampled_of(int32_t c, int32_t runmin,
   return (fl & kSample) ? wrap_sub(c, min(runmin, 0)) : kI32Min;
 }
 
-__device__ __forceinline__ void put_tile(const Seg& tile, int32_t* agg_v,
-                                         int32_t* agg_f) {
-  if (threadIdx.x == 0) {
-    agg_v[blockIdx.x] = tile.v;
-    agg_f[blockIdx.x] = tile.f;
+__device__ __forceinline__ void load_items(const int32_t* p,
+                                           int32_t (&x)[kItems]) {
+#pragma unroll
+  for (int j = 0; j < kItems; j += 4) {
+    const int4 q = *reinterpret_cast<const int4*>(p + j);
+    x[j] = q.x;
+    x[j + 1] = q.y;
+    x[j + 2] = q.z;
+    x[j + 3] = q.w;
   }
 }
 
-// Chunks at or past m read as s = bias = flags = 0: inert, they continue the
-// last chain and are never written.
-
-// A1: tile aggregates of scan 1 over (F_START, s - bias).
-__global__ void __launch_bounds__(kTile)
-reduce_c_kernel(const int32_t* __restrict__ s,
-                const int32_t* __restrict__ bias,
-                const int32_t* __restrict__ flags, int64_t m,
-                int32_t* __restrict__ agg_v, int32_t* __restrict__ agg_f) {
-  __shared__ Seg warp_aggs[kWarps];
-  const int64_t i = chunk_index();
-  const bool in = i < m;
-  const int32_t fl = in ? flags[i] : 0;
-  const int32_t dp = in ? wrap_sub(s[i], bias[i]) : 0;
-  Seg tile;
-  block_scan<SumOp>({dp, fl & kStart}, SumOp::kIdentity, warp_aggs, &tile);
-  put_tile(tile, agg_v, agg_f);
-}
-
-// B: inclusive prefixes of the tile aggregates, one block walking them in
-// runs of kTile tiles.
-template <class Op>
-__global__ void __launch_bounds__(kTile)
-scan_tiles_kernel(const int32_t* __restrict__ agg_v,
-                  const int32_t* __restrict__ agg_f, int64_t n_tiles,
-                  int32_t* __restrict__ incl) {
-  __shared__ Seg warp_aggs[kWarps];
-  int32_t run = Op::kIdentity;  // the scan's value after the runs before
-  for (int64_t base = 0; base < n_tiles; base += kTile) {
-    const int64_t t = base + threadIdx.x;
-    const Seg x = t < n_tiles ? Seg{agg_v[t], agg_f[t]}
-                              : Seg{Op::kIdentity, 0};
-    Seg part;
-    const int32_t v = block_scan<Op>(x, run, warp_aggs, &part);
-    if (t < n_tiles) incl[t] = v;
-    run = part.f ? part.v : Op::apply(run, part.v);
+__device__ __forceinline__ void store_items(int32_t* p,
+                                            const int32_t (&x)[kItems]) {
+#pragma unroll
+  for (int j = 0; j < kItems; j += 4) {
+    *reinterpret_cast<int4*>(p + j) = make_int4(x[j], x[j + 1], x[j + 2],
+                                                x[j + 3]);
   }
 }
 
-// C1 + A2: c, then the tile aggregates of scan 2 over (F_START, m).
-__global__ void __launch_bounds__(kTile)
-scan_c_kernel(const int32_t* __restrict__ s, const int32_t* __restrict__ bias,
-              const int32_t* __restrict__ flags, int64_t m,
-              const int32_t* __restrict__ incl, int32_t* __restrict__ c_out,
-              int32_t* __restrict__ agg_v, int32_t* __restrict__ agg_f) {
-  __shared__ Seg warp_aggs[kWarps];
-  const int64_t i = chunk_index();
-  const bool in = i < m;
-  const int32_t fl = in ? flags[i] : 0;
-  const int32_t sv = in ? s[i] : 0;
-  const int32_t dp = in ? wrap_sub(sv, bias[i]) : 0;
-  const int32_t start = fl & kStart;
-  Seg tile;
-  const int32_t c = block_scan<SumOp>({dp, start}, tile_carry<SumOp>(incl),
-                                      warp_aggs, &tile);
-  if (in) c_out[i] = c;
-  block_scan<MinOp>({m_of(c, sv, fl), start}, MinOp::kIdentity, warp_aggs,
-                    &tile);
-  put_tile(tile, agg_v, agg_f);
-}
+// The sources of s.  load() fills out[0, kTile) with the tile's s, 0 past n
+// real chunks; every thread calls it.
 
-// C2 + A3: runmin, then the tile aggregates of scan 3 over (F_START, sampled).
-__global__ void __launch_bounds__(kTile)
-scan_runmin_kernel(const int32_t* __restrict__ c_in,
-                   const int32_t* __restrict__ s,
-                   const int32_t* __restrict__ flags, int64_t m,
-                   const int32_t* __restrict__ incl,
-                   int32_t* __restrict__ runmin_out,
-                   int32_t* __restrict__ agg_v, int32_t* __restrict__ agg_f) {
-  __shared__ Seg warp_aggs[kWarps];
-  const int64_t i = chunk_index();
-  const bool in = i < m;
-  const int32_t fl = in ? flags[i] : 0;
-  const int32_t c = in ? c_in[i] : 0;
-  const int32_t sv = in ? s[i] : 0;
-  const int32_t start = fl & kStart;
-  Seg tile;
-  const int32_t runmin = block_scan<MinOp>(
-      {m_of(c, sv, fl), start}, tile_carry<MinOp>(incl), warp_aggs, &tile);
-  if (in) runmin_out[i] = runmin;
-  block_scan<MaxOp>({sampled_of(c, runmin, fl), start}, MaxOp::kIdentity,
-                    warp_aggs, &tile);
-  put_tile(tile, agg_v, agg_f);
-}
+// s given as int32 chunk sums.
+struct SumsGiven {
+  const int32_t* s;
+  __device__ void load(int32_t* out, int64_t base, int n) const {
+    for (int i = threadIdx.x; i < kTile; i += kThreads) {
+      out[i] = i < n ? s[base + i] : 0;
+    }
+  }
+};
 
-// C3: w.
-__global__ void __launch_bounds__(kTile)
-scan_w_kernel(const int32_t* __restrict__ c_in,
-              const int32_t* __restrict__ runmin_in,
-              const int32_t* __restrict__ flags, int64_t m,
-              const int32_t* __restrict__ incl, int32_t* __restrict__ w_out) {
-  __shared__ Seg warp_aggs[kWarps];
-  const int64_t i = chunk_index();
-  const bool in = i < m;
-  const int32_t fl = in ? flags[i] : 0;
-  const int32_t c = in ? c_in[i] : 0;
-  const int32_t runmin = in ? runmin_in[i] : MinOp::kIdentity;
-  Seg tile;
-  const int32_t w =
-      block_scan<MaxOp>({sampled_of(c, runmin, fl), fl & kStart},
-                        tile_carry<MaxOp>(incl), warp_aggs, &tile);
-  if (in) w_out[i] = w;
+// Rows of 128 int8 scores from a 16-byte aligned base, plus the tweak.
+struct Rows128 {
+  const int8_t* tiles;
+  const int32_t* tweak;   // device scalar, or null for 0
+  __device__ void load(int32_t* out, int64_t base, int n) const {
+    constexpr int kLanesPerRow = 128 / 16;
+    constexpr int kRowsPerStep = 32 / kLanesPerRow * kWarps;
+    constexpr int kSteps = kTile / kRowsPerStep;
+    static_assert(kSteps % kUnroll == 0, "whole unrolled steps");
+    const int lane = threadIdx.x & 31;
+    const int sub = lane % kLanesPerRow;
+    const int row0 = (threadIdx.x >> 5) * (32 / kLanesPerRow) +
+                     lane / kLanesPerRow;
+    const int32_t tw = tweak != nullptr ? *tweak : 0;
+    const int4* p = reinterpret_cast<const int4*>(tiles + base * 128) + sub;
+    for (int step = 0; step < kSteps; step += kUnroll) {
+      int4 q[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int row = (step + u) * kRowsPerStep + row0;
+        q[u] = row < n ? __ldcs(p + row * kLanesPerRow) : make_int4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        int32_t acc = __dp4a(q[u].x, 0x01010101, 0);
+        acc = __dp4a(q[u].y, 0x01010101, acc);
+        acc = __dp4a(q[u].z, 0x01010101, acc);
+        acc = __dp4a(q[u].w, 0x01010101, acc);
+        acc += __shfl_xor_sync(kFull, acc, 1);
+        acc += __shfl_xor_sync(kFull, acc, 2);
+        acc += __shfl_xor_sync(kFull, acc, 4);
+        const int row = (step + u) * kRowsPerStep + row0;
+        if (sub == 0) out[row] = row < n ? wrap_add(acc, tw) : 0;
+      }
+    }
+  }
+};
+
+// Rows of any even width from 2 to 258, a row a thread, two bytes a load.
+struct RowsAny {
+  const int8_t* tiles;
+  const int32_t* tweak;
+  int chunk;
+  __device__ void load(int32_t* out, int64_t base, int n) const {
+    const int32_t tw = tweak != nullptr ? *tweak : 0;
+    for (int i = threadIdx.x; i < kTile; i += kThreads) {
+      int32_t acc = 0;
+      if (i < n) {
+        const auto* row = reinterpret_cast<const char2*>(tiles +
+                                                         (base + i) * chunk);
+        for (int b = 0; b < chunk / 2; ++b) {
+          const char2 x = row[b];
+          acc += x.x + x.y;
+        }
+        acc = wrap_add(acc, tw);
+      }
+      out[i] = acc;
+    }
+  }
+};
+
+template <class Rows>
+__global__ void __launch_bounds__(kThreads)
+combine_kernel(Rows rows, const int32_t* __restrict__ bias,
+               const int32_t* __restrict__ flags, int64_t m,
+               int32_t* __restrict__ c_out, int32_t* __restrict__ w_out,
+               unsigned int* ticket, uint64_t* status, int n_tiles) {
+  __shared__ Shared sh;
+  if (threadIdx.x == 0) sh.tile = static_cast<int>(atomicAdd(ticket, 1u));
+  __syncthreads();
+  const int tile = sh.tile;
+  const int64_t base = static_cast<int64_t>(tile) * kTile;
+  const int64_t rest = m - base;
+  const int n = rest < kTile ? static_cast<int>(rest) : kTile;
+  for (int i = threadIdx.x; i < kTile; i += kThreads) {
+    const bool in = i < n;
+    sh.bias[i] = in ? bias[base + i] : 0;
+    sh.flags[i] = in ? flags[base + i] : 0;
+  }
+  rows.load(sh.s, base, n);
+  __syncthreads();
+
+  const int first = threadIdx.x * kItems;
+  int32_t s[kItems], fl[kItems], v[kItems], reset[kItems], c[kItems];
+  load_items(sh.s + first, s);
+  load_items(sh.flags + first, fl);
+  load_items(sh.bias + first, v);
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    reset[j] = fl[j] & kStart;
+    v[j] = wrap_sub(s[j], v[j]);
+  }
+  scan_tile<SumOp>(v, reset, status, tile, sh);
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    c[j] = v[j];
+    v[j] = m_of(c[j], s[j], fl[j]);
+  }
+  scan_tile<MinOp>(v, reset, status + n_tiles, tile, sh);
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) v[j] = sampled_of(c[j], v[j], fl[j]);
+  scan_tile<MaxOp>(v, reset, status + 2 * static_cast<int64_t>(n_tiles), tile,
+                   sh);
+
+  // every thread took its items before the scans' barriers: reuse bias and
+  // flags to stage c and w for coalesced stores
+  store_items(sh.bias + first, c);
+  store_items(sh.flags + first, v);
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    c_out[base + i] = sh.bias[i];
+    w_out[base + i] = sh.flags[i];
+  }
 }
 
 int64_t tiles_of(int64_t m) { return (m + kTile - 1) / kTile; }
 
-}  // namespace
-
-// int32 elements of scratch that gat_pair_combine needs for m chunks.
-extern "C" int64_t gat_pair_combine_scratch(int64_t m) {
-  return m + 3 * tiles_of(m);
+template <class Rows>
+int launch(const Rows& rows, const void* bias, const void* flags, int64_t m,
+           void* c, void* w, void* scratch, void* stream) {
+  if (m <= 0) return static_cast<int>(cudaSuccess);
+  const int64_t n_tiles = tiles_of(m);
+  if (n_tiles > 2147483647 / 3) return static_cast<int>(cudaErrorInvalidValue);
+  auto* ticket = static_cast<unsigned int*>(scratch);
+  auto* status = static_cast<uint64_t*>(scratch) + 1;
+  combine_kernel<Rows><<<static_cast<unsigned>(n_tiles), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      rows, static_cast<const int32_t*>(bias),
+      static_cast<const int32_t*>(flags), m, static_cast<int32_t*>(c),
+      static_cast<int32_t*>(w), ticket, status, static_cast<int>(n_tiles));
+  return static_cast<int>(cudaGetLastError());
 }
 
-// Launch K2's seven passes on `stream`; returns the cudaError_t of the first
-// launch that failed (0 = success).  s, bias, flags are m int32 inputs; c and
-// w are m int32 outputs; scratch holds gat_pair_combine_scratch(m) int32.
-// Every pointer is device memory.
+}  // namespace
+
+// 64-bit words of scratch that a launch needs for m chunks: the ticket, then
+// three status words a tile.  The caller zeroes them before every launch.
+extern "C" int64_t gat_pair_combine_scratch(int64_t m) {
+  return 1 + 3 * tiles_of(m);
+}
+
+// K2 from int32 chunk sums s: one launch on `stream`; returns its
+// cudaError_t (0 = success).  s, bias, flags are m int32 inputs; c and w are
+// m int32 outputs; scratch holds gat_pair_combine_scratch(m) zeroed 64-bit
+// words.  Every pointer is device memory.
 extern "C" int gat_pair_combine(const void* s, const void* bias,
                                 const void* flags, int64_t m, void* c, void* w,
                                 void* scratch, void* stream) {
-  if (m <= 0) return static_cast<int>(cudaSuccess);
-  const int64_t n_tiles = tiles_of(m);
-  if (n_tiles > 2147483647) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* s_ = static_cast<const int32_t*>(s);
-  const auto* bias_ = static_cast<const int32_t*>(bias);
-  const auto* flags_ = static_cast<const int32_t*>(flags);
-  auto* c_ = static_cast<int32_t*>(c);
-  auto* w_ = static_cast<int32_t*>(w);
-  auto* runmin = static_cast<int32_t*>(scratch);
-  int32_t* agg_v = runmin + m;
-  int32_t* agg_f = agg_v + n_tiles;
-  int32_t* incl = agg_f + n_tiles;
-  const auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(n_tiles));
-  cudaError_t err;
+  return launch(SumsGiven{static_cast<const int32_t*>(s)}, bias, flags, m, c,
+                w, scratch, stream);
+}
 
-  reduce_c_kernel<<<grid, kTile, 0, st>>>(s_, bias_, flags_, m, agg_v, agg_f);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  scan_tiles_kernel<SumOp><<<1, kTile, 0, st>>>(agg_v, agg_f, n_tiles, incl);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  scan_c_kernel<<<grid, kTile, 0, st>>>(s_, bias_, flags_, m, incl, c_, agg_v,
-                                        agg_f);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  scan_tiles_kernel<MinOp><<<1, kTile, 0, st>>>(agg_v, agg_f, n_tiles, incl);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  scan_runmin_kernel<<<grid, kTile, 0, st>>>(c_, s_, flags_, m, incl, runmin,
-                                             agg_v, agg_f);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  scan_tiles_kernel<MaxOp><<<1, kTile, 0, st>>>(agg_v, agg_f, n_tiles, incl);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  scan_w_kernel<<<grid, kTile, 0, st>>>(c_, runmin, flags_, m, incl, w_);
-  return static_cast<int>(cudaGetLastError());
+// K2 from (m, chunk) int8 score tiles, 16-byte aligned, chunk even in
+// [2, 258]: s is each row's int32 sum plus *tweak (tweak may be null); the
+// rest as gat_pair_combine.
+extern "C" int gat_pair_combine_tiles(const void* tiles, int chunk,
+                                      const void* tweak, const void* bias,
+                                      const void* flags, int64_t m, void* c,
+                                      void* w, void* scratch, void* stream) {
+  if (chunk < 2 || chunk > 258 || chunk % 2 != 0 ||
+      reinterpret_cast<uintptr_t>(tiles) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* t = static_cast<const int8_t*>(tiles);
+  const auto* tw = static_cast<const int32_t*>(tweak);
+  if (chunk == 128) {
+    return launch(Rows128{t, tw}, bias, flags, m, c, w, scratch, stream);
+  }
+  return launch(RowsAny{t, tw, chunk}, bias, flags, m, c, w, scratch, stream);
 }

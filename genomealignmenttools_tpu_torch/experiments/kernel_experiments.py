@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Measurements behind the designs of K1 (csrc/rescore.cu) and K3
-(csrc/band.cu), on one CUDA card.
+"""Measurements behind the designs of K1 (csrc/rescore.cu), K2
+(csrc/combine.cu) and K3 (csrc/band.cu), on one CUDA card.
 
     python3 genomealignmenttools_tpu_torch/experiments/kernel_experiments.py \\
-        [k1] [k3] [--out DIR]
+        [k1] [k2] [k3] [--out DIR]
 
-Run from the root of a checkout.  Builds variants of the two kernels, each
+Run from the root of a checkout.  Builds variants of the kernels, each
 into its own library under build/experiments/, prints what ptxas reports for
 each (registers, stack frame, spills), checks every variant against the
 plain PyTorch version, and times them in turns with CUDA events at the main
@@ -23,10 +23,19 @@ k3  the first version (experiments/band_v1.cu: byte parents in a zeroed
     DP alone: `ok` forced to 0; the traceback's share is the difference)
     and with 2 and 4 problems a block instead of 1, on the extension problems of the
     600-gap RepeatFiller workload.
+k2  the first version (experiments/combine_v1.cu: seven launches over int32
+    sums, fed by the torch int8 row sums; both timed together, as the
+    parent's pass ran them, and the row sums apart) and the current source
+    (one launch from the int8 tiles, a chained scan with decoupled
+    look-back): as it is (512 threads of 4 chunks, 4 row-sum steps in
+    flight), with 256 threads of 8 chunks (its first shape) or of 4, 128 of
+    16, with 2 or 8 steps in flight, and cut after its row sums (the loads
+    alone, s written out; the scans and the look-back cost the difference),
+    on the chr1 workload's resident tiles.
 
 The variants are made by replacing one line of a copy of the source; no
 switch is left in the sources.  With --out the SASS of the current K3 at
-max_insert 100 and of K1 is written there (cuobjdump -sass).
+max_insert 100, of K1 and of K2 is written there (cuobjdump -sass).
 """
 
 from __future__ import annotations
@@ -296,6 +305,115 @@ def experiment_k3(tmp: str, out_dir: str | None) -> None:
           f"b_best); ms: " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
 
 
+def k2_launcher(lib):
+    """The current K2's tile entry from a variant's library: (c, w)."""
+    import torch
+    p = ctypes.c_void_p
+    lib.gat_pair_combine_tiles.restype = ctypes.c_int
+    lib.gat_pair_combine_tiles.argtypes = [
+        p, ctypes.c_int, p, p, p, ctypes.c_int64, p, p, p, p]
+    lib.gat_pair_combine_scratch.restype = ctypes.c_int64
+    lib.gat_pair_combine_scratch.argtypes = [ctypes.c_int64]
+
+    def launch(tiles, bias, flags):
+        m = bias.numel()
+        c = torch.empty(m, dtype=torch.int32, device=bias.device)
+        w = torch.empty_like(c)
+        scratch = torch.zeros(lib.gat_pair_combine_scratch(m),
+                              dtype=torch.int64, device=bias.device)
+        err = lib.gat_pair_combine_tiles(
+            tiles.data_ptr(), tiles.shape[1], None, bias.data_ptr(),
+            flags.data_ptr(), m, c.data_ptr(), w.data_ptr(),
+            scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: {err}")
+        return c, w
+    return launch
+
+
+def experiment_k2(tmp: str, out_dir: str | None) -> None:
+    import torch
+
+    from chip_smoke import bind_v1, v1_pass
+    from genomealignmenttools_tpu_torch.device.genome import open_genome
+    from genomealignmenttools_tpu_torch.formats.chain import read_chains
+    from genomealignmenttools_tpu_torch.formats.gapcalc import \
+        gap_calc_from_file
+    from genomealignmenttools_tpu_torch.formats.scorematrix import \
+        score_scheme_default
+    from genomealignmenttools_tpu_torch.ops import pair_combine as pc
+    from genomealignmenttools_tpu_torch.ops.pair_rescore import \
+        TorchPairChainScorer
+    from genomealignmenttools_tpu_torch.ops.rescore import TorchChainScorer
+    from genomealignmenttools_tpu_torch.utils.bench_workload import \
+        build_workload
+
+    dev = torch.device("cuda", 0)
+    src = os.path.join(CSRC, "combine.cu")
+    threads = "constexpr int kThreads = 512;"
+    items = "constexpr int kItems = 4; "
+    unroll = "constexpr int kUnroll = 4; "
+    cut = ("  rows.load(sh.s, base, n);\n  __syncthreads();\n",
+           "  rows.load(sh.s, base, n);\n  __syncthreads();\n"
+           "  for (int i = threadIdx.x; i < n; i += kThreads) "
+           "c_out[base + i] = sh.s[i];\n  if (n > 0) return;\n")
+    v1 = bind_v1(build_variant("combine_v1",
+                               os.path.join(HERE, "combine_v1.cu")))
+    libs = {"current (512 threads, 4 chunks a thread, 4 steps in flight)":
+            build_variant("combine_now", src)}
+    for n, k in ((256, 8), (256, 4), (128, 16)):
+        libs[f"{n} threads, {k} chunks a thread"] = build_variant(
+            f"combine_t{n}_i{k}", src,
+            [(threads, f"constexpr int kThreads = {n};"),
+             (items, f"constexpr int kItems = {k}; ")])
+    for u in (2, 8):
+        libs[f"{u} row-sum steps in flight"] = build_variant(
+            f"combine_u{u}", src, [(unroll, f"constexpr int kUnroll = {u}; ")])
+    cut_lib = build_variant("combine_rowsums", src, [cut])
+    if out_dir:
+        dump_sass("combine_now", out_dir)
+    w = build_workload(os.path.join(tmp, "chr1"), t_size=256_000_000,
+                       n_chains=384)
+    scheme, gc = score_scheme_default(), gap_calc_from_file("loose")
+    chains = read_chains(w["chain"])
+    scorer = TorchChainScorer(scheme, gc, open_genome(w["t2bit"]),
+                              open_genome(w["q2bit"]), device=dev, mode="pair")
+    jobs, order = scorer._grouped(chains)
+    meta = TorchPairChainScorer(scorer._dev, gc)._meta(
+        jobs, [chains[i].n_blocks for i in order])
+    tiles, bias, flags = scorer._dev._pack(jobs).tiles, meta.bias, meta.flags
+    want = pc.pair_combine_scan_tiles_plain(tiles, bias, flags)
+    launch = {k: k2_launcher(lib) for k, lib in libs.items()}
+    for name, fn in launch.items():
+        for _ in range(2):
+            got = fn(tiles, bias, flags)
+            if not all(torch.equal(g, x) for g, x in zip(got, want)):
+                raise RuntimeError(f"K2 {name} != plain")
+    if not all(torch.equal(g, x) for g, x in
+               zip(v1_pass(v1, tiles, bias, flags), want)):
+        raise RuntimeError("K2 v1 != plain")
+    sums_only = k2_launcher(cut_lib)
+    if not torch.equal(sums_only(tiles, bias, flags)[0],
+                       tiles.sum(dim=1, dtype=torch.int32)):
+        raise RuntimeError("K2 cut after its row sums: s != the row sums")
+    variants = {"v1 + torch row sums (parent's pass)":
+                lambda: v1_pass(v1, tiles, bias, flags),
+                "torch row sums alone": lambda: tiles.sum(
+                    dim=1, dtype=torch.int32)}
+    variants.update({name: (lambda fn=fn: fn(tiles, bias, flags))
+                     for name, fn in launch.items()})
+    variants["current, cut after its row sums"] = lambda: sums_only(
+        tiles, bias, flags)
+    variants["torch.zeros of the scratch alone"] = lambda: torch.zeros(
+        1 + 3 * -(-bias.numel() // pc.TILE), dtype=torch.int64, device=dev)
+    ms = turns(variants, 20)
+    rows = tiles.shape[0]
+    bound = 1e3 * (tiles.numel() + 16 * rows) / 3.35e12
+    print(f"[k2] chr1 resident: {rows} chunks of {tiles.shape[1]} bytes, byte "
+          f"bound {bound:.4f} ms; every variant == plain, twice; ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+
+
 def main(argv: list[str]) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -308,13 +426,15 @@ def main(argv: list[str]) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(f"[device] {smi}")
-    which = [a for a in argv if a in ("k1", "k3")] or ["k1", "k3"]
+    which = [a for a in argv if a in ("k1", "k2", "k3")] or ["k1", "k2", "k3"]
     with tempfile.TemporaryDirectory(prefix="kernel_experiments_") as tmp:
         t0 = time.monotonic()
         if "k3" in which:
             experiment_k3(tmp, out_dir)
         if "k1" in which:
             experiment_k1(tmp, out_dir)
+        if "k2" in which:
+            experiment_k2(tmp, out_dir)
         print(f"[done] {time.monotonic() - t0:.1f} s; {smi}")
     return 0
 

@@ -1,8 +1,10 @@
-"""The segmented combine of pair-mode rescoring: K2, its wrapper, its plain
-version and the per-chain finish.
+"""The segmented combine of pair-mode rescoring: K2, its wrappers, its plain
+versions and the per-chain finish.
 
-Counterpart of genomealignmenttools_tpu/ops/pallas_combine.py.  Per chunk,
-three dependent segmented scans that restart at every chain start (F_START):
+Counterpart of genomealignmenttools_tpu/ops/pallas_combine.py, with the row
+sum of the reference's fused pass (pair_rescore.py::_fused_pass, :748-761).
+Per chunk, three dependent segmented scans that restart at every chain start
+(F_START):
 
     c       = running sum of (s - bias)
     m       = min(F_SAMPLE ? c : I32_MAX, F_FIRST ? c - s : I32_MAX)
@@ -11,8 +13,11 @@ three dependent segmented scans that restart at every chain start (F_START):
     w       = running max of sampled
 
 and per chain global = c[end], local = max(w[end], 0) (pallas_combine.py:
-18-28), all int32.  `pair_combine_scan` launches K2 (csrc/combine.cu) on
-CUDA tensors and runs `pair_combine_scan_plain` on CPU tensors.  The plain
+18-28), all int32.  K2 (csrc/combine.cu) takes s from one of two sources:
+`pair_combine_scan_tiles` sums each row of the (M, chunk) int8 score tiles
+(plus an optional int32 tweak) inside the kernel, in the same launch as the
+scans: the resident pass; `pair_combine_scan` takes int32 s.  Each launches
+K2 on CUDA tensors and runs its plain version on CPU tensors.  The plain
 version has the kernel's structure, with the tile size as a parameter: a
 scan within each tile, a scan of the tile aggregates, and the carry of the
 tiles before composed into each tile.  Integer scans are associative, so
@@ -35,22 +40,23 @@ F_SAMPLE = 4    # last chunk of a block (a scored prefix)
 I32_MAX = 2 ** 31 - 1
 I32_MIN = -(2 ** 31) + 1   # not INT32_MIN: the sentinel of pallas_combine.py:50
 
-TILE = 1024     # chunks per tile of the CUDA kernel (csrc/combine.cu kTile)
+TILE = 2048     # chunks per tile of the CUDA kernel (csrc/combine.cu kTile)
+CHUNK_MIN, CHUNK_MAX = 2, 258   # even tile widths K2 takes (258 * 127 < 2^15)
 
 
-def _check_args(s, bias, flags) -> None:
+def _check_args(s, bias, flags, first: str = "s") -> None:
     dev = s.device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"no combine path for device {dev}")
-    for name, x in (("s", s), ("bias", bias), ("flags", flags)):
+    for name, x in ((first, s), ("bias", bias), ("flags", flags)):
         if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, s on {dev}")
+            raise ValueError(f"{name} is on {x.device}, {first} on {dev}")
         if x.dtype != torch.int32:
             raise TypeError(f"{name} must be torch.int32, got {x.dtype}")
         if x.dim() != 1 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 1-D tensor")
     if not (s.numel() == bias.numel() == flags.numel()):
-        raise ValueError("s, bias and flags differ in length")
+        raise ValueError(f"{first}, bias and flags differ in length")
 
 
 def _seg_scan_rows(v, f, op, identity):
@@ -113,27 +119,75 @@ def pair_combine_scan_plain(s, bias, flags, tile: int = TILE):
     return c, w
 
 
-def _launch_kernel(s, bias, flags):
-    """Launch K2 on the current stream of the tensors' CUDA device."""
+def _check_tiles(tiles, bias, flags, tweak) -> None:
+    _check_args(bias, bias, flags, first="bias")
+    if tiles.device != bias.device:
+        raise ValueError(f"tiles are on {tiles.device}, bias on {bias.device}")
+    if tiles.dtype != torch.int8:
+        raise TypeError(f"tiles must be torch.int8, got {tiles.dtype}")
+    if tiles.dim() != 2 or not tiles.is_contiguous():
+        raise ValueError("tiles must be a contiguous 2-D tensor")
+    if tiles.shape[0] != bias.numel():
+        raise ValueError(f"tiles have {tiles.shape[0]} rows, bias "
+                         f"{bias.numel()} chunks")
+    chunk = tiles.shape[1]
+    if not CHUNK_MIN <= chunk <= CHUNK_MAX or chunk % 2:
+        raise ValueError(f"tile width {chunk}: must be even and between "
+                         f"{CHUNK_MIN} and {CHUNK_MAX}")
+    if tiles.data_ptr() % 16:
+        raise ValueError("tiles must start on a 16-byte boundary (K2 reads "
+                         "rows 16 bytes at a time)")
+    if tweak is not None:
+        if tweak.device != bias.device:
+            raise ValueError(f"tweak is on {tweak.device}, bias on "
+                             f"{bias.device}")
+        if tweak.dtype != torch.int32 or tweak.numel() != 1:
+            raise TypeError("tweak must be one torch.int32 value")
+
+
+def pair_combine_scan_tiles_plain(tiles, bias, flags, tweak=None,
+                                  tile: int = TILE):
+    """(c, w) int32 per chunk in plain PyTorch: the int32 row sums of the
+    int8 tiles, plus the tweak, through pair_combine_scan_plain."""
+    s = tiles.sum(dim=1, dtype=torch.int32)
+    if tweak is not None:
+        s = s + tweak.reshape(())
+    return pair_combine_scan_plain(s, bias, flags, tile)
+
+
+def _launch(entry, m: int, dev, *args):
+    """Launch one of K2's entries on the current stream of `dev`: m int32
+    outputs c and w, and the zeroed scratch the kernel's look-back needs."""
     lib = _build.load_library()
-    dev = s.device
-    m = s.numel()
     c = torch.empty(m, dtype=torch.int32, device=dev)
     w = torch.empty(m, dtype=torch.int32, device=dev)
     if m == 0:
         return c, w
-    scratch = torch.empty(lib.gat_pair_combine_scratch(m), dtype=torch.int32,
+    scratch = torch.zeros(lib.gat_pair_combine_scratch(m), dtype=torch.int64,
                           device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gat_pair_combine(
-            s.data_ptr(), bias.data_ptr(), flags.data_ptr(), m, c.data_ptr(),
-            w.data_ptr(), scratch.data_ptr(), stream)
+        err = getattr(lib, entry)(*args, m, c.data_ptr(), w.data_ptr(),
+                                  scratch.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError("pair_combine launch failed: "
+        raise RuntimeError(f"{entry} launch failed: "
                            + lib.gat_cuda_error_string(err).decode())
     LAUNCHES["pair_combine"] += 1
     return c, w
+
+
+def _launch_kernel(s, bias, flags):
+    """K2 from int32 chunk sums, on the tensors' CUDA device."""
+    return _launch("gat_pair_combine", s.numel(), s.device, s.data_ptr(),
+                   bias.data_ptr(), flags.data_ptr())
+
+
+def _launch_tiles(tiles, bias, flags, tweak=None):
+    """K2 from int8 score tiles, on the tensors' CUDA device."""
+    return _launch("gat_pair_combine_tiles", bias.numel(), bias.device,
+                   tiles.data_ptr(), tiles.shape[1],
+                   None if tweak is None else tweak.data_ptr(),
+                   bias.data_ptr(), flags.data_ptr())
 
 
 def pair_combine_scan(s, bias, flags):
@@ -145,6 +199,19 @@ def pair_combine_scan(s, bias, flags):
     if s.device.type == "cuda":
         return _launch_kernel(s, bias, flags)
     return pair_combine_scan_plain(s, bias, flags)
+
+
+def pair_combine_scan_tiles(tiles, bias, flags, tweak=None):
+    """(c, w) int32 per chunk from (M, chunk) int8 score tiles (s = each
+    row's int32 sum, plus `tweak`, one int32 value on the same device, if
+    given), gap biases and flags, any M.  On CUDA tensors this launches K2
+    (csrc/combine.cu), which reads every tile byte once and scans in the
+    same launch, or raises; on CPU tensors it runs the plain version."""
+    _check_tiles(tiles, bias, flags, tweak)
+    PERF["dispatches"] += 1
+    if bias.device.type == "cuda":
+        return _launch_tiles(tiles, bias, flags, tweak)
+    return pair_combine_scan_tiles_plain(tiles, bias, flags, tweak)
 
 
 def pair_combine_finish(c, w, end_idx):

@@ -1,5 +1,5 @@
-"""Pair-mode chain rescoring: int8 score tiles resident on the device, chunk
-sums, and per-chain scores from K2 with only (n_chains, 2) fetched.
+"""Pair-mode chain rescoring: int8 score tiles resident on the device, and
+per-chain scores from K2 with only (n_chains, 2) fetched.
 
 Counterpart of genomealignmenttools_tpu/ops/pair_rescore.py with its int8
 score tiles (PairBlockScorer and PairChainScorer, pair_rescore.py:325-574,
@@ -7,12 +7,14 @@ score tiles (PairBlockScorer and PairChainScorer, pair_rescore.py:325-574,
 and the native packer (`gat_pack_pairs_scored`, native/pairpack.cpp:98)
 writes one int8 substitution score per aligned base, zero past a chunk's
 end, into (m, chunk) tiles, uploaded once and cached by the identity of the
-blocks arrays.  A pass is then a row sum and the combine:
+blocks arrays.  Then:
 
-    TorchPairBlockScorer   chunk sums -> host, for the native host combine
-                           (chunk_scores_multi, block_scores_multi)
-    TorchPairChainScorer   chunk sums -> K2 (ops/pair_combine.py) -> finish,
-                           one (n_chains, 2) int32 fetch (score, score_chained)
+    TorchPairBlockScorer   torch row sums -> host, for the native host
+                           combine (chunk_scores_multi, block_scores_multi)
+    TorchPairChainScorer   one K2 launch (ops/pair_combine.py) that reads
+                           every tile byte once, sums the rows and runs the
+                           three scans -> finish, one (n_chains, 2) int32
+                           fetch (score, score_chained)
 
 `pair_chain_scores_plain` is the reference's staged combine
 (`_pair_chain_scores`, pair_rescore.py:606-745) in torch int64; it is the
@@ -38,8 +40,8 @@ from ..engines.scoring import gap_costs
 from ..native import get_lib
 from ..utils.bigmem import big_empty
 from ..utils.profiling import phase
-from .pair_combine import (F_FIRST, F_SAMPLE, F_START, TILE,
-                           pair_combine_finish, pair_combine_scan)
+from .pair_combine import (CHUNK_MAX, CHUNK_MIN, F_FIRST, F_SAMPLE, F_START,
+                           TILE, pair_combine_finish, pair_combine_scan_tiles)
 from .rescore import _n_threads
 from .window_rescore import chunk_blocks
 
@@ -53,16 +55,17 @@ _FEEDBACK_SENTINEL = -(2 ** 62)
 def pair_chunk() -> int:
     """Bases per tile row: GAT_PAIR_CHUNK (default CHUNK), as the reference
     reads it (pair_rescore.py:58), but checked: even (the native packers
-    fill whole byte pairs), at least 2, and chunk * 127 < 32768 so that any
-    chunk sum fits int16 as in the reference."""
+    fill whole byte pairs) and from CHUNK_MIN = 2 to CHUNK_MAX = 258, so
+    that chunk * 127 < 32768 and any chunk sum fits int16 as in the
+    reference; the widths K2 takes."""
     raw = os.environ.get("GAT_PAIR_CHUNK", str(CHUNK))
     try:
         chunk = int(raw)
     except ValueError:
         raise ValueError(f"GAT_PAIR_CHUNK={raw!r} is not an integer") from None
-    if chunk < 2 or chunk % 2 or chunk * 127 >= 32768:
+    if not CHUNK_MIN <= chunk <= CHUNK_MAX or chunk % 2:
         raise ValueError(f"GAT_PAIR_CHUNK={chunk}: must be even and "
-                         "between 2 and 258")
+                         f"between {CHUNK_MIN} and {CHUNK_MAX}")
     return chunk
 
 
@@ -368,10 +371,10 @@ class TorchPairChainScorer:
         return meta
 
     def _pass(self, jobs, meta: PairMeta, tweak=None) -> torch.Tensor:
-        s = self.pair.chunk_sums(jobs)
-        if tweak is not None:
-            s = s + tweak
-        c, w = pair_combine_scan(s, meta.bias, meta.flags)
+        """One pass: K2 from the resident tiles (row sums plus `tweak`, and
+        the scans, in one launch), then the finish."""
+        tiles = self.pair._pack(jobs).tiles
+        c, w = pair_combine_scan_tiles(tiles, meta.bias, meta.flags, tweak)
         return pair_combine_finish(c, w, meta.end_idx)
 
     def score_async(self, jobs, chain_nblocks) -> torch.Tensor:
@@ -409,8 +412,9 @@ class TorchPairChainScorer:
         return out.cpu().numpy()
 
     def resident_hbm_bytes(self, jobs, chain_nblocks) -> int:
-        """Device bytes a pass reads and writes at least: the int8 tiles,
-        then s, bias and flags read and c and w written by the combine."""
+        """Device bytes K2 reads and writes in a pass: the int8 tiles, bias
+        and flags read once, c and w written once (4 bytes each a chunk).
+        The finish's (n_chains, 2) is left out."""
         self._meta(jobs, chain_nblocks)
         tiles = self.pair._pack(jobs).tiles
-        return int(tiles.numel() + 5 * 4 * tiles.shape[0])
+        return int(tiles.numel() + 4 * 4 * tiles.shape[0])

@@ -10,10 +10,10 @@ rescore.py:282-555) in three of its modes, chosen by `mode` or GAT_RESCORE:
   global/local score scan.
 - `pair`: int8 score tiles packed once on the host and kept on the device
   (ops/pair_rescore.py).  With the device combine (GAT_COMBINE=device, or
-  `auto` when the same chain set is scored again), score_chains runs the
-  chunk sums and K2 (ops/pair_combine.py, csrc/combine.cu) on the device and
-  fetches only (n_chains, 2) int32; otherwise the chunk sums go to the
-  native host combine.
+  `auto` when the same chain set is scored again), score_chains runs K2
+  (ops/pair_combine.py, csrc/combine.cu: the row sums and the scans in one
+  launch) on the device and fetches only (n_chains, 2) int32; otherwise the
+  chunk sums (torch row sums) go to the native host combine.
 - `hostnative`: no device at all (rescore.py:319-324): the threaded C++
   LUT sums straight from the host genome arrays and the native combine.
   The block scorer says `host_native = True`, so the engines take their

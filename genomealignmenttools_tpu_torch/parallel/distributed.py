@@ -7,7 +7,10 @@ Counterpart of genomealignmenttools_tpu/parallel/distributed.py:
   RANK) or from the arguments; idempotent, a no-op for one process.  The
   backend is named by the caller, never guessed: `nccl` for ranks that each
   own a CUDA card, `gloo` otherwise (two ranks on one card need gloo, since
-  NCCL refuses two ranks on one GPU).
+  NCCL refuses two ranks on one GPU).  A group it made is destroyed when
+  the interpreter exits, if the caller has not done so: a gloo group still
+  alive at exit aborted a rank once in a few runs ("terminate called
+  without an active exception") while its threads were torn down.
 - `hosts_chips_mesh()` - (world size, this rank's devices): a torch process
   addresses only its own cards.
 - `shard_indices` - the reference's contiguous work partition (its text),
@@ -19,6 +22,7 @@ Counterpart of genomealignmenttools_tpu/parallel/distributed.py:
 
 from __future__ import annotations
 
+import atexit
 import os
 
 import numpy as np
@@ -58,6 +62,14 @@ def init_distributed(backend: str | None = None,
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)))
     dist.init_process_group(backend, init_method=init_method or "env://",
                             world_size=world_size, rank=rank)
+    atexit.register(_leave_at_exit)
+
+
+def _leave_at_exit() -> None:
+    """Destroy the process group before the interpreter exits, unless the
+    caller already has."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def world() -> tuple[int, int]:

@@ -18,8 +18,8 @@ of torch.devices; an entry may repeat (["cuda:0"] * 4 on a one-card machine,
 Why ShardedChainScorer cuts at chain boundaries: the JAX version row-shards
 the tiles evenly and lets GSPMD insert the combine's cross-shard carries;
 torch has no GSPMD.  A chain's scores depend only on its own chunks, so a
-shard that holds whole chains needs no carry at all: it runs row sums, K2
-and the finish alone, and only the (n_chains_shard, 2) results are
+shard that holds whole chains needs no carry at all: it runs K2 (row sums
+and scans in one launch) and the finish alone, and only the (n_chains_shard, 2) results are
 gathered.  The cut before shard i is the chain start nearest i * M / n,
 where M is the chunk count of the set (chain_cuts), so shards are balanced
 by chunks (aligned bases) as far as whole chains allow.  Outputs do not

@@ -58,3 +58,49 @@ def combine_case(rng, nb, nc, pad_to: int = 1):
     bias[block_first[gap_blocks]] = rng.integers(0, 40000,
                                                  int(gap_blocks.sum()))
     return s, bias, flags, start_idx, end_idx, m
+
+
+def score_tiles(rng, s, chunk: int):
+    """(len(s), chunk) int8 tile rows whose int32 row sums are s, as the pair
+    packer's score tiles hold them: each s split evenly over the row, then
+    zero-sum moves between neighbouring bytes, twice over, and the columns
+    shuffled, so that rows mix signs and reach -128 and 127.  Every s must
+    lie in [-128 * chunk, 127 * chunk]: the cases' s in [-500, 16000] fit
+    rows of 128 or more; narrower rows need s clipped first."""
+    s = np.asarray(s, np.int64)
+    if chunk < 1 or ((s < -128 * chunk) | (s > 127 * chunk)).any():
+        raise ValueError(f"a sum lies outside what {chunk} int8 bytes hold")
+    out = np.empty((s.shape[0], chunk), np.int8)
+    lane = np.arange(chunk)
+    step = 1 << 16                    # rows built at a time
+    for lo in range(0, s.shape[0], step):
+        q, r = np.divmod(s[lo:lo + step], chunk)
+        x = (q[:, None] + (lane < r[:, None])).astype(np.int16)
+        for first in (0, 1):          # pairs (0, 1), (2, 3)...; then (1, 2)...
+            n_pairs = (chunk - first) // 2
+            xa = x[:, first:first + 2 * n_pairs:2]
+            xb = x[:, first + 1:first + 2 * n_pairs:2]
+            lo_d = np.maximum(-128 - xa, xb - 127)
+            span = np.minimum(127 - xa, xb + 128) + 1 - lo_d
+            d = lo_d + (rng.random(xa.shape, np.float32)
+                        * span).astype(np.int16)
+            xa += d
+            xb -= d
+        out[lo:lo + step] = x[:, rng.permutation(chunk)]
+    return out
+
+
+def even_tiles_torch(s, chunk: int):
+    """Tile rows whose sums are s, each s split evenly over its row (no
+    moves), built on the device of `s` (a torch int32 tensor): for cases too
+    large to build on the host."""
+    import torch
+    out = torch.empty((s.numel(), chunk), dtype=torch.int8, device=s.device)
+    lane = torch.arange(chunk, device=s.device)
+    step = 1 << 20                    # rows built at a time
+    for lo in range(0, s.numel(), step):
+        part = s[lo:lo + step].to(torch.int64)
+        q = torch.div(part, chunk, rounding_mode="floor")
+        out[lo:lo + step] = (q[:, None] + (lane < (part - q * chunk)[:, None])
+                             ).to(torch.int8)
+    return out

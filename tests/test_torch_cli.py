@@ -218,12 +218,12 @@ def pair_mode(monkeypatch):
     monkeypatch.setenv("GAT_RESCORE", "pair")
     monkeypatch.setenv("GAT_COMBINE", "device")
     calls = []
-    real = pair_rescore.pair_combine_scan
+    real = pair_rescore.pair_combine_scan_tiles
 
     def spy(*args):
-        calls.append(args[0].numel())
+        calls.append(args[0].shape[0])
         return real(*args)
-    monkeypatch.setattr(pair_rescore, "pair_combine_scan", spy)
+    monkeypatch.setattr(pair_rescore, "pair_combine_scan_tiles", spy)
     return calls
 
 

@@ -17,7 +17,8 @@ import torch
 from band_cases import (N_INSTANTIATION_CASES, N_KERNEL_CASES,
                         instantiation_cases, kernel_cases, outcome,
                         raw_inputs)
-from combine_cases import combine_case, edge_chains, random_chains
+from combine_cases import (combine_case, edge_chains, even_tiles_torch,
+                           random_chains, score_tiles)
 from genomealignmenttools_tpu_torch.device import LAUNCHES
 from genomealignmenttools_tpu_torch.device.genome import Genome, revcomp_codes
 from genomealignmenttools_tpu_torch.formats.chain import read_chains
@@ -176,8 +177,10 @@ def test_pair_combine_kernel_matches_plain(cuda_device, name):
     card = [a.to(cuda_device) for a in host]
     before = LAUNCHES["pair_combine"]
     c, w = pc.pair_combine_scan(*card[:3])
+    again = pc.pair_combine_scan(*card[:3])     # same bits in any block order
     torch.cuda.synchronize()
-    assert LAUNCHES["pair_combine"] == before + 1
+    assert LAUNCHES["pair_combine"] == before + 2
+    assert torch.equal(c, again[0]) and torch.equal(w, again[1])
     assert c.dtype == w.dtype == torch.int32 and c.device == cuda_device
     c_plain, w_plain = pc.pair_combine_scan_plain(*card[:3])
     assert torch.equal(c, c_plain) and torch.equal(w, w_plain)
@@ -186,6 +189,96 @@ def test_pair_combine_kernel_matches_plain(cuda_device, name):
     fin = pc.pair_combine_finish(c, w, card[4])
     staged = pair_chain_scores_plain(*card[:3], card[3], card[4])
     assert torch.equal(fin.to(torch.int64), staged)
+
+
+def _tiles_against_plain(tiles, s, bias, flags, start_idx, end_idx, tweak):
+    """K2's tile entry twice (the same bits both times), against its plain
+    version on the card and, finished, against the staged int64 combine of
+    s + tweak."""
+    before = LAUNCHES["pair_combine"]
+    c, w = pc.pair_combine_scan_tiles(tiles, bias, flags, tweak)
+    again = pc.pair_combine_scan_tiles(tiles, bias, flags, tweak)
+    torch.cuda.synchronize()
+    assert LAUNCHES["pair_combine"] == before + 2
+    assert torch.equal(c, again[0]) and torch.equal(w, again[1])
+    assert c.dtype == w.dtype == torch.int32 and c.device == tiles.device
+    c_plain, w_plain = pc.pair_combine_scan_tiles_plain(tiles, bias, flags,
+                                                        tweak)
+    assert torch.equal(c, c_plain) and torch.equal(w, w_plain)
+    s_tw = s if tweak is None else (s + tweak).to(torch.int32)
+    staged = pair_chain_scores_plain(s_tw, bias, flags, start_idx, end_idx)
+    fin = pc.pair_combine_finish(c, w, end_idx)
+    assert torch.equal(fin.to(torch.int64), staged)
+    return c, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tweak", [None, 7])
+@pytest.mark.parametrize("chunk", [128, 130])
+@pytest.mark.parametrize("name", ["edge", "ragged", "random"])
+def test_pair_combine_tiles_kernel_matches_plain(cuda_device, name, chunk,
+                                                 tweak):
+    """The tile entry at the default width (16-byte loads) and at one that
+    is not a multiple of 16 (a row a thread), with and without a tweak, on
+    int8 rows whose sums are the cases' s."""
+    s, bias, flags, start_idx, end_idx, _ = _combine_inputs(name)
+    tiles = score_tiles(np.random.default_rng(chunk), s, chunk)
+    card = [torch.from_numpy(a).to(cuda_device)
+            for a in (tiles, s, bias, flags, start_idx, end_idx)]
+    tw = None if tweak is None else torch.tensor(tweak, dtype=torch.int32,
+                                                 device=cuda_device)
+    c, w = _tiles_against_plain(*card, tw)
+    host = pc.pair_combine_scan_tiles(*[torch.from_numpy(a) for a in (
+        tiles, bias, flags)], None if tw is None else tw.cpu())
+    assert torch.equal(c.cpu(), host[0]) and torch.equal(w.cpu(), host[1])
+
+
+@pytest.mark.gpu
+def test_pair_combine_tiles_kernel_many_tiles(cuda_device):
+    """200,000 random chains: about 26 million chunks in some 13,000 tiles,
+    far more than the card holds blocks at once, so the look-back crosses
+    many tiles and blocks finish in every order."""
+    rng = np.random.default_rng(31)
+    s, bias, flags, start_idx, end_idx, m = combine_case(
+        rng, *random_chains(rng, 200_000))
+    assert m // pc.TILE > 10_000
+    card = [torch.from_numpy(a).to(cuda_device)
+            for a in (s, bias, flags, start_idx, end_idx)]
+    tiles = even_tiles_torch(card[0], 128)
+    tw = torch.tensor(1, dtype=torch.int32, device=cuda_device)
+    _tiles_against_plain(tiles, *card, tw)
+
+
+@pytest.mark.gpu
+def test_pair_pass_never_takes_the_torch_row_sums(cuda_device, monkeypatch):
+    """TorchPairChainScorer's pass on the card reads the tiles in K2 itself:
+    with TorchPairBlockScorer.chunk_sums made to raise, score and
+    score_chained still give the host-native scores, one launch a pass."""
+    from genomealignmenttools_tpu_torch.ops import pair_rescore as pr
+    from genomealignmenttools_tpu_torch.ops.rescore import torch_scorer_factory
+
+    def no_row_sums(*_):
+        raise AssertionError("the pass went through the torch row sums")
+    monkeypatch.setattr(pr.TorchPairBlockScorer, "chunk_sums", no_row_sums)
+    scheme = score_scheme_default()
+    gc = gap_calc_from_file("loose")
+    t_genome = Genome(os.path.join(FIXTURES, "target.2bit"))
+    q_genome = Genome(os.path.join(FIXTURES, "query.2bit"))
+    chains = read_chains(os.path.join(FIXTURES, "synthetic.chain"))
+    scorer = TorchChainScorer(scheme, gc, t_genome, q_genome,
+                              device=cuda_device, mode="pair")
+    jobs, order = scorer._grouped(chains)
+    nblocks = [chains[i].n_blocks for i in order]
+    pcs = pr.TorchPairChainScorer(scorer._dev, gc)
+    host = torch_scorer_factory(mode="hostnative")(scheme, gc, t_genome,
+                                                   q_genome)
+    want = [host.global_and_local(chains[i]) for i in order]
+    before = LAUNCHES["pair_combine"]
+    assert pcs.score(jobs, nblocks) == want
+    assert LAUNCHES["pair_combine"] == before + 1
+    chained = pcs.score_chained(jobs, nblocks, 3)
+    assert LAUNCHES["pair_combine"] == before + 4
+    assert chained.tolist() == [[g, loc] for (g, loc, _) in want]
 
 
 @pytest.mark.gpu

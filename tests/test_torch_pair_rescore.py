@@ -5,16 +5,23 @@ On tests/fixtures/synthetic.chain (both strands) and a seeded random chain
 set: the port's int8-tile chunk sums and block sums equal the JAX
 PairBlockScorer's and the host's; TorchPairChainScorer.score and
 score_chained equal the JAX PairChainScorer (its staged combine, as it runs
-on the CPU) and the host ChainScorer; the int32 guard sends a batch to the
-host combine with the same scores; GAT_PAIR_CHUNK, GAT_RESCORE and
-GAT_COMBINE are checked.  Integer math: every comparison is exact.
+on the CPU), the host ChainScorer and the port's host-native scorer, through
+one pass of K2's tile entry; the int32 guard sends a batch to the host
+combine with the same scores; GAT_PAIR_CHUNK, GAT_RESCORE and GAT_COMBINE are
+checked.  The pass itself, `pair_combine_scan_tiles_plain` + finish, equals
+the JAX package's one-dispatch pass (`_fused_pass`, `_fused_pass_chained`,
+scored tiles, the Pallas combine in interpret mode) on the adversarial cases
+of tests/combine_cases.py at tile widths 2, 6, 128, 130 and 258.  Integer
+math: every comparison is exact.
 """
 
 import os
 
 import numpy as np
 import pytest
+import torch
 
+from combine_cases import score_tiles
 from genomealignmenttools_tpu.device.genome import Genome
 from genomealignmenttools_tpu.engines.scoring import ChainScorer, block_scores
 from genomealignmenttools_tpu.formats.chain import read_chains
@@ -22,8 +29,10 @@ from genomealignmenttools_tpu.formats.gapcalc import gap_calc_from_file
 from genomealignmenttools_tpu.formats.scorematrix import score_scheme_default
 from genomealignmenttools_tpu.ops import pair_rescore as jax_pair
 from genomealignmenttools_tpu_torch.device import PERF
+from genomealignmenttools_tpu_torch.ops import pair_combine as pc
 from genomealignmenttools_tpu_torch.ops import pair_rescore as port_pair
 from genomealignmenttools_tpu_torch.ops.rescore import TorchChainScorer
+from test_torch_pair_combine import _case
 from test_torch_rescore import _random_chains
 
 CPU = "cpu"
@@ -97,7 +106,7 @@ def test_chain_scorer_matches_jax_pair_and_host(setup, chain_sets, which):
     assert chained.tolist() == [[g, loc] for (g, loc, _) in got]
     tiles = port.pair._pack(jobs).tiles
     assert port.resident_hbm_bytes(jobs, nblocks) == \
-        tiles.numel() + 20 * tiles.shape[0]
+        tiles.numel() + 16 * tiles.shape[0]
 
 
 def test_pack_and_meta_are_cached_and_padded(setup, chain_sets):
@@ -162,12 +171,12 @@ def test_overflow_takes_host_combine(setup, chain_sets, tmp_path,
 def combine_calls(monkeypatch):
     """Counts the calls of the combine wrapper from the pair scorer."""
     calls = []
-    real = port_pair.pair_combine_scan
+    real = port_pair.pair_combine_scan_tiles
 
     def spy(*args):
-        calls.append(args[0].numel())
+        calls.append(args[0].shape[0])
         return real(*args)
-    monkeypatch.setattr(port_pair, "pair_combine_scan", spy)
+    monkeypatch.setattr(port_pair, "pair_combine_scan_tiles", spy)
     return calls
 
 
@@ -279,3 +288,97 @@ def test_pack_without_native_library(setup, chain_sets, monkeypatch):
         np.asarray(scheme.lut), t_genome, q_genome, CPU)._pack(jobs).tiles
     assert nat.get_lib() is None
     assert np.array_equal(plain.numpy(), native.numpy())
+
+
+CHUNKS = [2, 6, 128, 130, 258]
+
+
+def _tile_case(name, chunk):
+    """A combine case as int8 tiles of `chunk` bytes a row: its s clipped to
+    what a row holds, rows padded to the Pallas tile."""
+    s, bias, flags, _, end_idx, _ = _case(name)
+    s = np.clip(s, -128 * chunk, 127 * chunk).astype(np.int32)
+    return score_tiles(np.random.default_rng(chunk), s, chunk), bias, flags, \
+        end_idx
+
+
+def _jax_pass(tiles, bias, flags, end_idx, feedback=None):
+    import jax.numpy as jnp
+    args = [jnp.asarray(a) for a in (tiles, bias, flags, end_idx)]
+    if feedback is None:
+        out = jax_pair._fused_pass(args[0], None, *args[1:], interpret=True,
+                                   scored=True)
+    else:
+        out = jax_pair._fused_pass_chained(
+            args[0], None, *args[1:], jnp.asarray(feedback), interpret=True,
+            scored=True)
+    return np.asarray(out)
+
+
+def _port_pass(tiles, bias, flags, end_idx, tweak=None):
+    t = [torch.from_numpy(np.ascontiguousarray(a))
+         for a in (tiles, bias, flags, end_idx)]
+    c, w = pc.pair_combine_scan_tiles_plain(*t[:3], tweak)
+    return pc.pair_combine_finish(c, w, t[3]).numpy()
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("name", ["random-200", "edge", "multi-tile-chain"])
+def test_tiles_pass_matches_jax_fused_pass(name, chunk):
+    tiles, bias, flags, end_idx = _tile_case(name, chunk)
+    got = _port_pass(tiles, bias, flags, end_idx)
+    assert got.dtype == np.int32
+    assert np.array_equal(got, _jax_pass(tiles, bias, flags, end_idx))
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_tiles_pass_with_tweak_matches_jax_fused_pass_chained(chunk):
+    """The chained pass's tweak: the reference adds 1 to every row sum when
+    its feedback equals INT32_MIN; the port adds the tweak it is given."""
+    tiles, bias, flags, end_idx = _tile_case("random-200", chunk)
+    for fb, tweak in (([-2 ** 31, 0], 1), ([5, 0], 0)):
+        want = _jax_pass(tiles, bias, flags, end_idx,
+                         np.array(fb, np.int32))
+        got = _port_pass(tiles, bias, flags, end_idx,
+                         torch.tensor(tweak, dtype=torch.int32))
+        assert np.array_equal(got, want)
+    assert not np.array_equal(
+        _port_pass(tiles, bias, flags, end_idx,
+                   torch.tensor(1, dtype=torch.int32)),
+        _port_pass(tiles, bias, flags, end_idx))
+
+
+def test_chain_scorer_pass_is_one_tile_combine(setup, chain_sets,
+                                               monkeypatch):
+    """score and score_chained on the CPU go through one call of K2's tile
+    entry a pass and never through the torch row sums; their scores equal
+    the port's host-native scorer's."""
+    from genomealignmenttools_tpu_torch.ops.rescore import torch_scorer_factory
+    scheme, gc, t_genome, q_genome = setup
+    chains = chain_sets["random"]
+    jobs, nblocks, order = _jobs(setup, chains)
+    port = port_pair.TorchPairChainScorer(
+        port_pair.TorchPairBlockScorer(np.asarray(scheme.lut), t_genome,
+                                       q_genome, CPU), gc)
+    calls = []
+    real = port_pair.pair_combine_scan_tiles
+
+    def spy(tiles, *args):
+        calls.append(tiles.shape)
+        return real(tiles, *args)
+
+    def no_row_sums(*_):
+        raise AssertionError("the pass went through the torch row sums")
+    monkeypatch.setattr(port_pair, "pair_combine_scan_tiles", spy)
+    monkeypatch.setattr(port_pair.TorchPairBlockScorer, "chunk_sums",
+                        no_row_sums)
+    host = torch_scorer_factory(mode="hostnative")(scheme, gc, t_genome,
+                                                   q_genome)
+    want = [host.global_and_local(chains[i]) for i in order]
+    assert port.score(jobs, nblocks) == want
+    assert len(calls) == 1
+    chained = port.score_chained(jobs, nblocks, 4)
+    assert len(calls) == 5
+    assert chained.tolist() == [[g, loc] for (g, loc, _) in want]
+    tiles = port.pair._pack(jobs).tiles
+    assert calls[0] == tiles.shape and tiles.shape[1] == port_pair.CHUNK
