@@ -26,12 +26,15 @@ non-zero:
 4. kernel K2 - K2 against its plain versions on the card, exact, and K2 +
               finish against the staged int64 combine, from int32 sums and
               from int8 tiles whose rows sum to them (128 bytes a row, no
-              tweak; 130 bytes, a tweak of 3), each run twice with the same
-              bits, on the adversarial chain workloads of
-              tests/combine_cases.py: the carry's edge cases (a chain over
-              more than three of K2's tiles, single-chunk chains, a chain
-              ending on a tile's last chunk, pad chunks), an unpadded input,
-              and 7, 800 and 200,000 random chains.
+              tweak; 130 bytes, a tweak of 3), and from combined-code and
+              4-bit tiles of combine_cases.code_tiles' bases at chunks 128
+              and 130 (4-bit rows of 64 and 65 bytes), each with and without
+              a tweak and against the int8 entry on the same bases; every
+              case run twice with the same bits, on the adversarial chain
+              workloads of tests/combine_cases.py: the carry's edge cases (a
+              chain over more than three of K2's tiles, single-chunk chains,
+              a chain ending on a tile's last chunk, pad chunks), an
+              unpadded input, and 7, 800 and 200,000 random chains.
 5. kernel K3 - K3 against its plain version on the card, meta and moves
               exactly, on the case sets of tests/band_cases.py: both modes at
               max_insert 7, 20 and 100, homologous, unrelated and N-run
@@ -44,8 +47,9 @@ non-zero:
 6. fixtures - scoreChain, chainNet -rescore and chainCleaner through the
               port's CLI on the card, byte-compared with tests/golden; each
               must launch K1.  Then the same in pair mode (GAT_RESCORE=pair
-              GAT_COMBINE=device): chainNet -rescore and chainCleaner must
-              launch K2.
+              GAT_COMBINE=device) in each tile format (GAT_PAIR_TILES unset,
+              code, score4): chainNet -rescore and chainCleaner must launch
+              the format's K2 entry (its own LAUNCHES key) and no other.
 7. chr1     - the bench workload (utils/bench_workload.py, 256 Mb per genome,
               384 chains, ~367 Mb aligned) through the port's scoreChain,
               byte-compared with a host-native run of the same file; cold and
@@ -60,7 +64,13 @@ non-zero:
               its plain version and its first version (the torch row sums
               and the seven-launch kernel, the parent's pass), exact, and
               all three timed in turns at these shapes beside K2's bound;
-              peak device memory.
+              then the same chains in combined-code and 4-bit tiles
+              (GAT_PAIR_TILES=code, score4): pack and upload seconds, 45
+              launches of the format's entry in 45 passes, scores equal to
+              the host-native ones, sustained ms a pass, bytes a pass, GB/s
+              and share of the HBM rate, the entry against its plain
+              version and K2's int8 entry on the same chunks, exact and
+              timed in turns beside its bound; peak device memory.
 9. cleaner  - chainNet -rescore on the chainCleaner bench workload
               (build_cleaner_workload, as bench.py builds it) through the
               port in window mode and in pair mode with the device combine,
@@ -139,7 +149,17 @@ INT32_OPS_PER_S = 67e12 / 4
 # j*E offsets: 7), the three parent bits (5), the column best (2), the
 # matrix index (1)
 K3_OPS_PER_CELL = 25
-PAIR_ENV = {"GAT_RESCORE": "pair", "GAT_COMBINE": "device"}
+PAIR_ENV = {"GAT_RESCORE": "pair", "GAT_COMBINE": "device",
+            "GAT_PAIR_TILES": None}
+# K2's row sources past the int8 one: GAT_PAIR_TILES value -> the kind of
+# ops/pair_combine.py, whose LAUNCHES key is pair_combine.LAUNCH_KEY[kind]
+FORMATS = ("code", "score4")
+# operations a tile byte of K2's row sources: the instructions of each one's
+# row-sum loop (16-byte loads, the decode, the shuffles, the stores of s) over
+# the tile bytes a thread reads in one trip, counted in the SASS that nvcc
+# 12.8 made for sm_90a (experiments/kernel_experiments.py k2 --out: 96, 323
+# and 349 instructions for 64 bytes)
+OPS_PER_BYTE = {"score8": 96 / 64, "code": 323 / 64, "score4": 349 / 64}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -367,11 +387,12 @@ def max_diff(*pairs) -> int:
 
 
 def k2_against_plain(s, bias, flags, start_idx, end_idx, tiles=None,
-                     tweak=None) -> int:
+                     tweak=None, kind="score8", table=None, s8=None) -> int:
     """K2 == its plain version, twice with the same bits, and K2 + finish ==
     the staged int64 combine of s (+ tweak), on one set of card tensors:
-    from the int32 sums s, or, given `tiles` whose rows sum to s, from the
-    tiles.  Returns the max abs difference."""
+    from the int32 sums s, or, given `tiles` of the format `kind` whose rows
+    sum to s, from the tiles; given `s8`, the int8 tiles of the same bases,
+    K2's int8 entry on them too.  Returns the max abs difference."""
     import torch
 
     from genomealignmenttools_tpu_torch.ops import pair_combine as pc
@@ -382,27 +403,45 @@ def k2_against_plain(s, bias, flags, start_idx, end_idx, tiles=None,
             s, bias, flags)
     else:
         run, plain = pc.pair_combine_scan_tiles, pc.pair_combine_scan_tiles_plain
-        args = (tiles, bias, flags, tweak)
+        args = (tiles, bias, flags, tweak, kind, table)
     c, w = run(*args)
     c2, w2 = run(*args)
     c_plain, w_plain = plain(*args)
+    pairs = [(c, c_plain), (w, w_plain), (c, c2), (w, w2)]
+    if s8 is not None:
+        c8, w8 = pc.pair_combine_scan_tiles(s8, bias, flags, tweak)
+        pairs += [(c, c8), (w, w8)]
     fin = pc.pair_combine_finish(c, w, end_idx).to(torch.int64)
     s_tw = s if tweak is None else (s + tweak).to(torch.int32)
     staged = pair_chain_scores_plain(s_tw, bias, flags, start_idx, end_idx)
-    return max_diff((c, c_plain), (w, w_plain), (c, c2), (w, w2),
-                    (fin, staged))
+    return max_diff(*pairs, (fin, staged))
 
 
-def phase_kernel_k2(dev) -> int:
-    """Exact K2 == plain (and == staged), both entries, on the card; returns
-    the max abs difference."""
+def format_tiles(kind: str, codes, idx_lut25):
+    """The tiles of `kind` for the combined codes `codes` (torch, on the
+    card): the codes themselves, or their 4-bit indices."""
+    from combine_cases import nibble_tiles
+    return codes if kind == "code" else nibble_tiles(codes, idx_lut25)
+
+
+def phase_kernel_k2(dev) -> tuple[int, dict]:
+    """Exact K2 == plain (and == staged), every entry, on the card; returns
+    the max abs difference of the int32 and int8 entries and of each other
+    row source."""
     import numpy as np
     import torch
 
     sys.path.insert(0, os.path.join(REPO, "tests"))
-    from combine_cases import (combine_case, edge_chains, even_tiles_torch,
-                               random_chains, score_tiles)
+    from combine_cases import (WIDE_LUT, code_tiles, code_tiles_torch,
+                               combine_case, edge_chains, even_tiles_torch,
+                               random_chains, score_tiles, scored_tiles)
     from genomealignmenttools_tpu_torch.ops.pair_combine import TILE
+    from genomealignmenttools_tpu_torch.ops.pair_rescore import (pack_vals16,
+                                                                 vals16_of)
+    IDX_LUT25, vals_packed = pack_vals16(WIDE_LUT)
+    TABLES = {"code": torch.from_numpy(WIDE_LUT.reshape(25).astype(np.int8)),
+              "score4": torch.from_numpy(vals16_of(vals_packed))}
+    by_kind = {kind: 0 for kind in FORMATS}
 
     rng = np.random.default_rng(20261017)
     cases = [("edge cases", edge_chains(TILE), TILE),
@@ -437,6 +476,34 @@ def phase_kernel_k2(dev) -> int:
                           f"staged on {label} (max {d})")
             diff = max(diff, d)
             del tiles
+        # the other row sources, on the bases of combine_cases.code_tiles
+        # (rows built on the card where the host would take long), at chunk
+        # 128 (16-byte loads) and 130 (a row a thread; 65 bytes of nibbles),
+        # with and without a tweak, each against its plain version, K2's
+        # int8 entry on the same bases and the staged combine of their sums
+        for chunk in (128, 130):
+            if s.shape[0] > 1 << 21:
+                codes = code_tiles_torch(s.shape[0], chunk, dev, seed=chunk)
+            else:
+                codes = code_tiles(rng, s.shape[0], chunk)
+                codes[m:] = 24
+                codes = torch.from_numpy(codes).to(dev)
+            s8 = scored_tiles(codes, WIDE_LUT)
+            s_f = s8.sum(dim=1, dtype=torch.int32)
+            for kind in FORMATS:
+                tiles = format_tiles(kind, codes, IDX_LUT25)
+                for tweak in (None, 3):
+                    tw = (None if tweak is None else
+                          torch.tensor(tweak, dtype=torch.int32, device=dev))
+                    d = k2_against_plain(s_f, *card[1:], tiles=tiles,
+                                         tweak=tw, kind=kind,
+                                         table=TABLES[kind], s8=s8)
+                    check(d == 0, f"K2 ({kind} tiles of {chunk} bases, tweak "
+                                  f"{tweak}) != plain, int8 or staged on "
+                                  f"{label} (max {d})")
+                    by_kind[kind] = max(by_kind[kind], d)
+                del tiles
+            del codes, s8, s_f
         worst = max(worst, diff)
         print(f"[kernel K2] {label}: {len(end_idx)} chains, {m} chunks + "
               f"{s.shape[0] - m} pad, {-(-s.shape[0] // TILE)} tiles of "
@@ -444,16 +511,24 @@ def phase_kernel_k2(dev) -> int:
               f"{int((lengths == 1).sum())} single-chunk chains, "
               f"{int((end_idx % TILE == TILE - 1).sum())} ending on a "
               f"tile's last chunk: from int32 sums and from int8 tiles of "
-              f"128 (no tweak) and 130 bytes (tweak 3), each run twice with "
-              f"the same bits, kernel == plain and finish == staged exactly")
+              f"128 (no tweak) and 130 bytes (tweak 3); from code tiles of "
+              f"128 and 130 bytes and 4-bit tiles of 64 and 65 bytes, each "
+              f"with no tweak and a tweak of 3: each run twice with the same "
+              f"bits, kernel == plain (== the int8 entry on the same bases) "
+              f"and finish == staged exactly")
         del card
-    return worst
+    return worst, by_kind
 
 
 @contextlib.contextmanager
 def environ(env: dict):
+    """Set each name of env for the block (None: unset it), then restore."""
     saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
@@ -480,10 +555,12 @@ def run_cli(args: list[str], env: dict | None = None) -> dict:
     return counts
 
 
-def phase_fixtures(tmp: str) -> None:
+def phase_fixtures(tmp: str) -> dict:
     """The three tools on the fixtures in window mode (K1), then in pair mode
-    with the device combine (K2; scoreChain takes score_table and the native
-    combine there, as in the reference, and launches neither kernel)."""
+    with the device combine in each tile format (K2's row source of the
+    format and no other; scoreChain takes score_table and the native combine
+    there, as in the reference, and launches neither kernel).  Returns the
+    launches of the code and 4-bit row sources."""
     f = lambda n: os.path.join(FIX, n)  # noqa: E731
     g = lambda n: os.path.join(GOLD, n)  # noqa: E731
     o = lambda n: os.path.join(tmp, n)  # noqa: E731
@@ -508,7 +585,12 @@ def phase_fixtures(tmp: str) -> None:
          [(o("clean.chain"), g("chainCleaner.out.chain")),
           (o("clean.bed"), g("chainCleaner.removedSuspects.bed"))]),
     ]
-    for mode, env in (("window", None), ("pair", PAIR_ENV)):
+    from genomealignmenttools_tpu_torch.ops.pair_combine import LAUNCH_KEY
+    modes = [("window", None, None), ("pair", PAIR_ENV, K2)]
+    modes += [(f"pair, {kind} tiles", {**PAIR_ENV, "GAT_PAIR_TILES": kind},
+               LAUNCH_KEY[kind]) for kind in FORMATS]
+    launches = {LAUNCH_KEY[kind]: 0 for kind in FORMATS}
+    for mode, env, key in modes:
         for label, args, pairs in runs:
             t0 = time.monotonic()
             counts = run_cli(args, env)
@@ -516,7 +598,15 @@ def phase_fixtures(tmp: str) -> None:
             if env is None:
                 check(counts[KERNEL] > 0, f"{label} never launched {KERNEL}")
             elif label != "scoreChain":
-                check(counts[K2] > 0, f"{label} (pair) never launched {K2}")
+                check(counts[key] > 0, f"{label} ({mode}) never launched "
+                                       f"{key}")
+            if key is not None:
+                others = [k for k in (K2, *launches) if k != key]
+                check(not any(counts[k] for k in others),
+                      f"{label} ({mode}) launched another row source: "
+                      f"{counts}")
+            if key in launches:
+                launches[key] += counts[key]
             for got, want in pairs:
                 check(same_bytes(got, want),
                       f"{label} ({mode}): {got} != {want}")
@@ -524,6 +614,7 @@ def phase_fixtures(tmp: str) -> None:
                   f"{', '.join(os.path.basename(w) for _, w in pairs)}; "
                   + ", ".join(f"{k} launches {v}" for k, v in counts.items())
                   + f"; {secs:.3f} s")
+    return launches
 
 
 def host_native_factory():
@@ -790,8 +881,10 @@ def phase_resident(meta: dict, dev, v1_lib) -> dict:
           f"v1 exactly, with and without a tweak.  Apart: the torch row sums "
           f"alone {row_ms:.4f} ms, the kernel's int32-s entry {s_ms:.4f} ms")
     # the bound: every tile byte, bias and flags read once, c and w written
-    # once; one add a byte and about six operations a chunk for the scans
-    bound = roofline(n_bytes, tiles.numel() + 6 * rows)
+    # once; the row-sum loop's operations a byte and about six a chunk for
+    # the scans
+    bound = roofline(n_bytes, OPS_PER_BYTE["score8"] * tiles.numel()
+                     + 6 * rows)
     print(f"[resident] K2 bound {bound['bound_ms']:.4f} ms by "
           f"{bound['bound_by']}: {n_bytes} bytes ({tiles.numel()} of tiles, "
           f"16 a chunk of bias, flags, c and w) at "
@@ -800,12 +893,137 @@ def phase_resident(meta: dict, dev, v1_lib) -> dict:
           f"{100 * bound['bound_ms'] / min(ms['v1']):.1f}%; library call: none "
           f"(three dependent segmented scans; torch.cumsum and cummax are not "
           f"segmented)")
+    formats = {kind: resident_format(kind, chains, scheme, gap_calc, t_gen,
+                                     q_gen, dev, host_rows, tiles)
+               for kind in FORMATS}
     print(f"[resident] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     return {"ms": min(ms["kernel"]), "plain_ms": min(ms["plain"]),
             "max_abs_err": worst, **bound, "library_ms": None,
-            "launches": launches,
+            "launches": launches, "formats": formats,
             "host": [(g, loc, int(a)) for g, loc, a in host_rows.tolist()]}
+
+
+def resident_format(kind: str, chains, scheme, gap_calc, t_gen, q_gen, dev,
+                    host_rows, int8_tiles) -> dict:
+    """The resident protocol of phase_resident with GAT_PAIR_TILES=kind:
+    pack, upload, metadata, 45 chained passes (each one launch of the
+    format's K2 entry) equal to the host-native scores; then the entry
+    against its plain version and against K2's int8 entry on the int8 tiles
+    of the same chunks, exactly, with and without a tweak, and the three
+    timed in turns beside the entry's bound.  Returns its kernels-line
+    numbers."""
+    import numpy as np
+    import torch
+
+    from genomealignmenttools_tpu_torch.device import LAUNCHES, perf_reset
+    from genomealignmenttools_tpu_torch.ops import pair_combine as pc
+    from genomealignmenttools_tpu_torch.ops.pair_rescore import \
+        TorchPairChainScorer
+    from genomealignmenttools_tpu_torch.ops.rescore import TorchChainScorer
+    from genomealignmenttools_tpu_torch.utils.profiling import (phase_acc_start,
+                                                         phase_acc_stop)
+    key = pc.LAUNCH_KEY[kind]
+    with environ({"GAT_PAIR_TILES": kind}):
+        scorer = TorchChainScorer(scheme, gap_calc, t_gen, q_gen, device=dev,
+                                  mode="pair")
+    check(scorer._dev.kind == kind, f"GAT_PAIR_TILES={kind} gave "
+                                    f"{scorer._dev.kind} tiles")
+    pcs = TorchPairChainScorer(scorer._dev, gap_calc)
+    jobs, order = scorer._grouped(chains)
+    nblocks = [chains[i].n_blocks for i in order]
+    torch.cuda.synchronize()
+    phase_acc_start()
+    pack = scorer._dev._pack(jobs)
+    torch.cuda.synchronize()
+    phases = phase_acc_stop()
+    meta_s, pmeta = timed(lambda: pcs._meta(jobs, nblocks))
+    tiles, table, bias, flags = pack.tiles, pack.table, pmeta.bias, pmeta.flags
+    up = phases["rescore: pair tiles to device"]
+    print(f"[resident {kind}] {pack.m} chunks ({tiles.shape[0]} rows of "
+          f"{tiles.shape[1]} bytes with pads): host pack "
+          f"{phases['rescore: pair pack']:.4f} s, upload of "
+          f"{tiles.numel() / 1e6:.3f} MB {up:.4f} s "
+          f"({tiles.numel() / up / 1e9:.3f} GB/s), scan metadata "
+          f"{meta_s:.4f} s (set-up, once per chain set)")
+    perf_reset()
+    out0 = pcs.score_chained(jobs, nblocks, 1)
+    singles = []
+    for _ in range(3):
+        dt, out = timed(lambda: pcs.score_chained(jobs, nblocks, 1))
+        check(np.array_equal(out, out0), f"resident {kind} pass is not "
+                                         f"repeatable")
+        singles.append(dt)
+    t41, out41 = timed(lambda: pcs.score_chained(jobs, nblocks, 41))
+    check(np.array_equal(out41, out0), f"chained {kind} passes changed the "
+                                       f"scores")
+    per_pass = (t41 - min(singles)) / 40
+    launches = LAUNCHES[key]
+    check(launches == 45 and LAUNCHES[K2] == 0,
+          f"resident {kind} passes launched {key} {launches} times and "
+          f"{K2} {LAUNCHES[K2]} times")
+    host = host_rows[np.asarray(order)]
+    check(np.array_equal(out0.astype(np.float64), host[:, :2]),
+          f"resident {kind} (global, local) differ from the host-native "
+          f"scores")
+    check(pcs.score(jobs, nblocks) == [(g, loc, int(a)) for g, loc, a in
+                                       host.tolist()],
+          f"TorchPairChainScorer.score ({kind}) differs from the host-native "
+          f"scores")
+    hbm = pcs.resident_hbm_bytes(jobs, nblocks)
+    print(f"[resident {kind}] every chain's (global, local, aliBases) equals "
+          f"the host-native scores; {key} launches {launches} in 45 passes, "
+          f"{K2} none; single pass {min(singles) * 1e3:.3f} ms (of "
+          f"{[round(x * 1e3, 3) for x in singles]}); sustained "
+          f"{per_pass * 1e3:.4f} ms per pass; resident_hbm_bytes {hbm} "
+          f"({hbm / 1e6:.3f} MB) per pass: {hbm / per_pass / 1e9:.3f} GB/s, "
+          f"{100 * hbm / per_pass / HBM_BYTES_PER_S:.2f}% of the published "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+
+    check(int8_tiles.shape[0] == tiles.shape[0], "int8 and format packs "
+                                                 "differ in rows")
+    s = pc.tile_row_sums(tiles, kind, table)
+    start_idx = torch.from_numpy(pmeta.start_idx).to(dev)
+    one = torch.tensor(1, dtype=torch.int32, device=dev)
+    worst = max(k2_against_plain(s, bias, flags, start_idx, pmeta.end_idx,
+                                 tiles=tiles, tweak=tw, kind=kind,
+                                 table=table, s8=int8_tiles)
+                for tw in (None, one))
+    check(worst == 0, f"K2 ({kind}) != plain or the int8 entry at resident "
+                      f"shapes (max {worst})")
+    ms = {}
+    # in turns: plain, int8 entry, the format's entry, twice over
+    runs = {"plain": (lambda: pc.pair_combine_scan_tiles_plain(
+                tiles, bias, flags, None, kind, table), 3),
+            "int8 K2": (lambda: pc._launch_tiles(int8_tiles, bias, flags),
+                        50),
+            "kernel": (lambda: pc._launch_tiles(tiles, bias, flags, None,
+                                                kind, table), 50)}
+    for label in ("plain", "int8 K2", "kernel", "kernel", "int8 K2",
+                  "plain"):
+        fn, reps = runs[label]
+        ms.setdefault(label, []).append(cuda_ms(fn, reps))
+    rows = tiles.shape[0]
+    n_bytes = tiles.numel() + 16 * rows
+    bound = roofline(n_bytes, OPS_PER_BYTE[kind] * tiles.numel() + 6 * rows)
+    print(f"[resident {kind}] K2's {kind} entry at these shapes ({rows} "
+          f"chunks of {tiles.shape[1]} bytes), in turns: kernel "
+          f"{ms['kernel']} ms; the int8 entry on the same chunks' int8 tiles "
+          f"{ms['int8 K2']} ms; plain {ms['plain']} ms; kernel == plain == "
+          f"the int8 entry exactly, with and without a tweak")
+    print(f"[resident {kind}] bound {bound['bound_ms']:.4f} ms by "
+          f"{bound['bound_by']}: {n_bytes} bytes ({tiles.numel()} of tiles, "
+          f"16 a chunk of bias, flags, c and w) at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+          f"{OPS_PER_BYTE[kind] * tiles.numel() + 6 * rows:.0f} integer "
+          f"operations ({OPS_PER_BYTE[kind]} a tile byte, 6 a chunk) at "
+          f"{INT32_OPS_PER_S / 1e12:.2f} T/s; the kernel reaches "
+          f"{100 * bound['bound_ms'] / min(ms['kernel']):.1f}% of it; library "
+          f"call: none")
+    del scorer, pcs, pack, tiles, s
+    return {"ms": min(ms["kernel"]), "plain_ms": min(ms["plain"]),
+            "int8_ms": min(ms["int8 K2"]), "max_abs_err": worst, **bound,
+            "library_ms": None, "launches": launches}
 
 
 def phase_cleaner(tmp: str, n_scenarios: int = 2000,
@@ -1389,8 +1607,8 @@ def phase_dryrun(dev) -> dict:
     torch.cuda.synchronize()
     secs = time.monotonic() - t0
     counts = dict(LAUNCHES)
-    check(all(v > 0 for v in counts.values()),
-          f"the dry run did not launch every kernel: {counts}")
+    check(all(counts[k] > 0 for k in (KERNEL, K2, K3)),
+          f"the dry run did not launch K1, K2 and K3: {counts}")
     print(f"[dryrun] dryrun_multidevice([cuda:0] * 4): sharded scorers, "
           f"sharded cleaner, chainNet -rescore and RepeatFiller, split band "
           f"DP all exact; launches {counts}; {secs:.3f} s")
@@ -1412,12 +1630,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     v1_lib = clocked(phase_build)
     worst = clocked(phase_kernel, dev)
-    worst_k2 = clocked(phase_kernel_k2, dev)
+    worst_k2, worst_formats = clocked(phase_kernel_k2, dev)
     worst_k3 = clocked(phase_kernel_k3, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # the phases of earlier slices first, so that their numbers are
         # taken as before: no profiler started, no other process on the card
-        clocked(phase_fixtures, tmp)
+        format_launches = clocked(phase_fixtures, tmp)
         entry, chr1 = clocked(phase_chr1, tmp, dev)
         resident = clocked(phase_resident, chr1, dev, v1_lib)
         k2_launches, cleaner = clocked(phase_cleaner, tmp)
@@ -1439,6 +1657,19 @@ def main() -> int:
                 "max_abs_err": max(worst_k2, resident["max_abs_err"]),
                 **{k: resident[k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}}
+    from genomealignmenttools_tpu_torch.ops.pair_combine import LAUNCH_KEY
+    format_entries = []
+    for kind, res in resident.pop("formats").items():
+        key = LAUNCH_KEY[kind]
+        format_entries.append({
+            "name": key, "route": "cuda",
+            "source": "genomealignmenttools_tpu_torch/csrc/combine.cu",
+            "replaces": "genomealignmenttools_tpu/ops/pallas_combine.py:112 "
+                        "with the decode of ops/pair_rescore.py:757-759",
+            "launches": res["launches"] + format_launches[key],
+            "max_abs_err": max(worst_formats[kind], res["max_abs_err"]),
+            **{k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}})
     k3_entry = {"name": K3, "route": "cuda",
                 "source": "genomealignmenttools_tpu_torch/csrc/band.cu",
                 "replaces": "genomealignmenttools_tpu/ops/pallas_band.py:63",
@@ -1454,7 +1685,8 @@ def main() -> int:
     print("[jax] neither jax nor any module of the JAX package was loaded")
     print(f"[time] whole run: {time.monotonic() - t_start:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": [entry, k2_entry, k3_entry]}))
+    print(json.dumps({"kernels": [entry, k2_entry, *format_entries,
+                                  k3_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -30,12 +30,13 @@ Layout (counterparts in genomealignmenttools_tpu/):
                           device_timer, the reference's phase timers)
   ops/window_rescore.py   chunking, plain PyTorch K1, the kernel wrapper,
                           WindowBlockScorer (ops/pallas_rescore.py)
-  ops/pair_combine.py     K2's wrappers (from int8 tiles, from int32 sums),
-                          their tiled plain versions, the finish
-                          (ops/pallas_combine.py)
-  ops/pair_rescore.py     int8 score tiles resident on the device,
-                          TorchPairBlockScorer (also host-native),
-                          TorchPairChainScorer (ops/pair_rescore.py)
+  ops/pair_combine.py     K2's wrappers (from int8, combined-code and 4-bit
+                          tiles, from int32 sums), their tiled plain
+                          versions, the finish (ops/pallas_combine.py)
+  ops/pair_rescore.py     tiles resident on the device in the format
+                          GAT_PAIR_TILES names, TorchPairBlockScorer (also
+                          host-native), TorchPairChainScorer, pack_pairs
+                          (ops/pair_rescore.py)
   ops/rescore.py          TorchGenomeCache, TorchChainScorer in window, pair
                           or host-native mode, the native combine
                           (ops/rescore.py)

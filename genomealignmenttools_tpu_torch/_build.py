@@ -139,6 +139,18 @@ def load_library() -> ctypes.CDLL:
         p,                                    # scratch (int64, device)
         p,                                    # cudaStream_t
     ]
+    for entry in ("gat_pair_combine_code", "gat_pair_combine_score4"):
+        getattr(lib, entry).restype = ctypes.c_int
+        getattr(lib, entry).argtypes = [
+            p, ctypes.c_int,                  # tiles (uint8, device), width
+            ctypes.POINTER(ctypes.c_int8),    # 25 scores / 16 values (host)
+            p,                                # tweak (int32, device) or None
+            p, p,                             # bias, flags (int32, device)
+            ctypes.c_int64,                   # number of chunks
+            p, p,                             # c, w (int32, device)
+            p,                                # scratch (int64, device)
+            p,                                # cudaStream_t
+        ]
     lib.gat_pair_combine_scratch.restype = ctypes.c_int64
     lib.gat_pair_combine_scratch.argtypes = [ctypes.c_int64]
     lib.gat_band_ext.restype = ctypes.c_int

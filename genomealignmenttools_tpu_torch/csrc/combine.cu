@@ -1,11 +1,11 @@
-// K2: the segmented combine of pair-mode chain rescoring, fused with the int8
-// row sums that feed it, in one pass, for sm_90a.
+// K2: the segmented combine of pair-mode chain rescoring, fused with the row
+// sums that feed it, in one pass, for sm_90a.
 //
 // Replaces genomealignmenttools_tpu/ops/pallas_combine.py::_combine_kernel
 // (body pallas_combine.py:112-147, launched by pair_combine_scan, pallas_call
 // at pallas_combine.py:166) together with the row sum that feeds it in the
-// reference's one-dispatch pass, pair_rescore.py::_fused_pass (:748-761:
-// _chunk_sums_i32_scored, the combine, then the finish).
+// reference's one-dispatch pass, pair_rescore.py::_fused_pass (:748-761: the
+// chunk sums of its tile format, the combine, then the finish).
 //
 // What it computes.  Over M chunks with int32 sums s, gap biases and flags
 // (F_START = 1 chain start, F_FIRST = 2 block first, F_SAMPLE = 4 block
@@ -18,24 +18,37 @@
 // with I32_MIN = -(2^31) + 1, the Pallas kernel's sentinel
 // (pallas_combine.py:49-50), and the same identities (0, I32_MAX, I32_MIN)
 // where a scan starts.  Arithmetic is int32 and wraps as the Pallas kernel's
-// does.  Two sources of s share the scans: gat_pair_combine takes s as int32;
-// gat_pair_combine_tiles takes the (M, chunk) int8 score tiles and makes s as
-// each row's int32 sum plus an optional int32 tweak read from the device.
+// does.  Four sources of s share the scans: gat_pair_combine takes s as
+// int32; the three tile formats of the reference's PairBlockScorer
+// (pair_rescore.py:345-371) make s as each row's int32 sum plus an optional
+// int32 tweak read from the device:
+//     gat_pair_combine_tiles   int8 scores, a byte a base (the default)
+//     gat_pair_combine_code    combined codes q * 5 + t, a byte a base,
+//                              through the 25-entry score table
+//     gat_pair_combine_score4  4-bit indices into 16 int8 values, two bases
+//                              a byte
 // Chunks at or past M read as s = bias = flags = 0: inert, they continue the
 // last chain and are never written.
 //
-// What bounds it.  At the default width a chunk is a 128-byte tile row read
-// once, 8 bytes of bias and flags read once and 8 bytes of c and w written:
-// 144 bytes against 32 dp4a and a few dozen integer and shuffle operations.
-// At the main path's sizes (millions of chunks) that is device memory.
+// What bounds it.  At the default width a chunk is a 128-byte tile row
+// (int8 or code; 64 bytes of nibbles) read once, 8 bytes of bias and flags
+// read once and 8 bytes of c and w written: 144 bytes (80 for nibbles).  The
+// decode costs about one integer operation a byte for int8 (a __dp4a adds
+// four), three for codes (extract, shared-memory lookup, add) and two a base
+// for nibbles (three byte permutes and a __dp4a for four), and a few dozen
+// a chunk for the scans.  At the main path's sizes (millions of chunks)
+// that is device memory for every format; the nibbles' operations come
+// closest to their halved bytes.
 //
 // What the design does about that.
-// - One launch reads each tile byte once.  At chunk 128 eight lanes take a
-//   row, 16 bytes a lane (streaming loads, neighbouring lanes on neighbouring
-//   addresses: a warp-step reads four rows, 512 contiguous bytes), kUnroll
-//   steps in flight; __dp4a(word, 0x01010101, acc) adds four signed bytes into
-//   int32 exactly and three xor-shuffles finish the row.  Any other even width
-//   from 2 to 258 takes a row a thread with 2-byte loads: right, not tuned.
+// - One launch reads each tile byte once.  At the default width (128 bytes
+//   of int8 or codes, 64 of nibbles) a row is 8 or 4 lanes, 16 bytes a lane
+//   (streaming loads, neighbouring lanes on neighbouring addresses: a
+//   warp-step reads 512 contiguous bytes), kUnroll steps in flight; the
+//   format's decoder turns each 4-byte word into an int32 sum and
+//   xor-shuffles finish the row.  Any other width (even, 2 to 258, for int8
+//   and codes; 1 to 129 bytes of nibbles) takes a row a thread with 2-byte
+//   loads, 1-byte where the width is odd: right, not tuned.
 // - A single-pass chained scan with decoupled look-back (Merrill and Garland,
 //   "Single-pass Parallel Prefix Scan with Decoupled Look-back", 2016) in
 //   place of reduce-then-scan's seven launches.  A block takes its tile number
@@ -279,21 +292,110 @@ struct SumsGiven {
   }
 };
 
-// Rows of 128 int8 scores from a 16-byte aligned base, plus the tweak.
-struct Rows128 {
-  const int8_t* tiles;
+// Row decoders: what a tile byte holds and how a row's bytes become its
+// int32 sum.  word() adds the four bytes of w to acc, pair() the two low
+// bytes of h, single() the low byte of b; prepare() runs once a block, on
+// every thread, before the rows are read.
+
+// int8 scores, one a byte: the resident default (_chunk_sums_i32_scored,
+// pair_rescore.py:131-134).  __dp4a against 0x01010101 adds four signed
+// bytes into int32 exactly.
+struct Score8 {
+  __device__ void prepare() const {}
+  __device__ int32_t word(uint32_t w, int32_t acc) const {
+    return __dp4a(static_cast<int32_t>(w), 0x01010101, acc);
+  }
+  __device__ int32_t pair(uint32_t h, int32_t acc) const {
+    return word(h, acc);    // the two high bytes are 0
+  }
+  __device__ int32_t single(uint32_t b, int32_t acc) const {
+    return word(b, acc);
+  }
+};
+
+// The combined codes' score table, 256 int8 entries in shared memory.
+__shared__ int8_t code_table[256];
+
+// Combined codes, one byte q * 5 + t a base (_pair_vals, pair_rescore.py:
+// 80-92): lut25[c] where q and t are both below 4, 0 for every other byte
+// (an N row or column, the pad 24, any byte of 25 or more).  A byte is one
+// lookup in code_table: its 25 live entries lie in seven 4-byte words, so a
+// warp's lookups never conflict on a bank.
+struct Code {
+  int8_t lut25[25];
+  __device__ void prepare() const {
+    for (int i = threadIdx.x; i < 256; i += kThreads) {
+      int8_t v = 0;
+#pragma unroll
+      for (int k = 0; k < 25; ++k) {
+        if (i == k && k / 5 < 4 && k % 5 < 4) v = lut25[k];
+      }
+      code_table[i] = v;
+    }
+    __syncthreads();
+  }
+  __device__ int32_t single(uint32_t b, int32_t acc) const {
+    return acc + code_table[b & 0xff];
+  }
+  __device__ int32_t pair(uint32_t h, int32_t acc) const {
+    return acc + code_table[h & 0xff] + code_table[(h >> 8) & 0xff];
+  }
+  __device__ int32_t word(uint32_t w, int32_t acc) const {
+    return acc + code_table[w & 0xff] + code_table[(w >> 8) & 0xff] +
+           code_table[(w >> 16) & 0xff] + code_table[w >> 24];
+  }
+};
+
+// 4-bit score indices, two bases a byte (_score4_vals, pair_rescore.py:
+// 143-155): each nibble indexes 16 int8 values, held in four registers as
+// the reference's vals_packed holds them (value i at byte i % 4 of p[i / 4]).
+// Four nibbles decode in three byte permutes: the low three bits of each
+// select a byte from values 0-7 and from values 8-15, and its bit 3 picks
+// one of the two; __dp4a adds the four bytes.
+struct Score4 {
+  uint32_t p[4];
+  __device__ void prepare() const {}
+  // the values the nibbles of s[15:0] index, one a byte
+  __device__ uint32_t vals4(uint32_t s) const {
+    const uint32_t sel = s & 0x7777u;
+    const uint32_t lo = __byte_perm(p[0], p[1], sel);
+    const uint32_t hi = __byte_perm(p[2], p[3], sel);
+    return __byte_perm(lo, hi, ((s >> 1) & 0x4444u) | 0x3210u);
+  }
+  __device__ int32_t word(uint32_t w, int32_t acc) const {
+    acc = __dp4a(static_cast<int32_t>(vals4(w)), 0x01010101, acc);
+    return __dp4a(static_cast<int32_t>(vals4(w >> 16)), 0x01010101, acc);
+  }
+  __device__ int32_t pair(uint32_t h, int32_t acc) const {
+    return __dp4a(static_cast<int32_t>(vals4(h)), 0x01010101, acc);
+  }
+  __device__ int32_t single(uint32_t b, int32_t acc) const {
+    return __dp4a(static_cast<int32_t>(vals4(b)), 0x00000101, acc);
+  }
+};
+
+// Rows of kRowBytes (128 or 64) bytes from a 16-byte aligned base, plus the
+// tweak: kRowBytes / 16 lanes a row, 16 bytes a lane (streaming loads,
+// neighbouring lanes on neighbouring addresses: a warp-step reads 512
+// contiguous bytes), kUnroll steps in flight, xor-shuffles finish the row.
+template <class Dec, int kRowBytes>
+struct RowsVec {
+  const uint8_t* tiles;
   const int32_t* tweak;   // device scalar, or null for 0
+  Dec dec;
   __device__ void load(int32_t* out, int64_t base, int n) const {
-    constexpr int kLanesPerRow = 128 / 16;
+    constexpr int kLanesPerRow = kRowBytes / 16;
     constexpr int kRowsPerStep = 32 / kLanesPerRow * kWarps;
     constexpr int kSteps = kTile / kRowsPerStep;
     static_assert(kSteps % kUnroll == 0, "whole unrolled steps");
+    dec.prepare();
     const int lane = threadIdx.x & 31;
     const int sub = lane % kLanesPerRow;
     const int row0 = (threadIdx.x >> 5) * (32 / kLanesPerRow) +
                      lane / kLanesPerRow;
     const int32_t tw = tweak != nullptr ? *tweak : 0;
-    const int4* p = reinterpret_cast<const int4*>(tiles + base * 128) + sub;
+    const int4* p = reinterpret_cast<const int4*>(tiles + base * kRowBytes) +
+                    sub;
     for (int step = 0; step < kSteps; step += kUnroll) {
       int4 q[kUnroll];
 #pragma unroll
@@ -303,13 +405,14 @@ struct Rows128 {
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        int32_t acc = __dp4a(q[u].x, 0x01010101, 0);
-        acc = __dp4a(q[u].y, 0x01010101, acc);
-        acc = __dp4a(q[u].z, 0x01010101, acc);
-        acc = __dp4a(q[u].w, 0x01010101, acc);
-        acc += __shfl_xor_sync(kFull, acc, 1);
-        acc += __shfl_xor_sync(kFull, acc, 2);
-        acc += __shfl_xor_sync(kFull, acc, 4);
+        int32_t acc = dec.word(static_cast<uint32_t>(q[u].x), 0);
+        acc = dec.word(static_cast<uint32_t>(q[u].y), acc);
+        acc = dec.word(static_cast<uint32_t>(q[u].z), acc);
+        acc = dec.word(static_cast<uint32_t>(q[u].w), acc);
+#pragma unroll
+        for (int d = 1; d < kLanesPerRow; d <<= 1) {
+          acc += __shfl_xor_sync(kFull, acc, d);
+        }
         const int row = (step + u) * kRowsPerStep + row0;
         if (sub == 0) out[row] = row < n ? wrap_add(acc, tw) : 0;
       }
@@ -317,21 +420,26 @@ struct Rows128 {
   }
 };
 
-// Rows of any even width from 2 to 258, a row a thread, two bytes a load.
+// Rows of any width, a row a thread: two bytes a load where the width is
+// even, one where it is odd.  Right, not tuned.
+template <class Dec>
 struct RowsAny {
-  const int8_t* tiles;
+  const uint8_t* tiles;
   const int32_t* tweak;
-  int chunk;
+  int width;
+  Dec dec;
   __device__ void load(int32_t* out, int64_t base, int n) const {
+    dec.prepare();
     const int32_t tw = tweak != nullptr ? *tweak : 0;
     for (int i = threadIdx.x; i < kTile; i += kThreads) {
       int32_t acc = 0;
       if (i < n) {
-        const auto* row = reinterpret_cast<const char2*>(tiles +
-                                                         (base + i) * chunk);
-        for (int b = 0; b < chunk / 2; ++b) {
-          const char2 x = row[b];
-          acc += x.x + x.y;
+        const uint8_t* row = tiles + (base + i) * width;
+        if (width % 2 == 0) {
+          const auto* row2 = reinterpret_cast<const uint16_t*>(row);
+          for (int b = 0; b < width / 2; ++b) acc = dec.pair(row2[b], acc);
+        } else {
+          for (int b = 0; b < width; ++b) acc = dec.single(row[b], acc);
         }
         acc = wrap_add(acc, tw);
       }
@@ -442,10 +550,66 @@ extern "C" int gat_pair_combine_tiles(const void* tiles, int chunk,
       reinterpret_cast<uintptr_t>(tiles) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto* t = static_cast<const int8_t*>(tiles);
+  const auto* t = static_cast<const uint8_t*>(tiles);
   const auto* tw = static_cast<const int32_t*>(tweak);
   if (chunk == 128) {
-    return launch(Rows128{t, tw}, bias, flags, m, c, w, scratch, stream);
+    return launch(RowsVec<Score8, 128>{t, tw, {}}, bias, flags, m, c, w,
+                  scratch, stream);
   }
-  return launch(RowsAny{t, tw, chunk}, bias, flags, m, c, w, scratch, stream);
+  return launch(RowsAny<Score8>{t, tw, chunk, {}}, bias, flags, m, c, w,
+                scratch, stream);
+}
+
+// K2 from (m, chunk) combined-code tiles (a byte q * 5 + t a base), 16-byte
+// aligned, chunk even in [2, 258]: s is each row's sum of lut25[c] over its
+// bytes (0 for an N row or column and any byte of 25 or more) plus *tweak.
+// lut25 is 25 int8 scores in host memory, indexed q * 5 + t; the rest as
+// gat_pair_combine_tiles.
+extern "C" int gat_pair_combine_code(const void* tiles, int chunk,
+                                     const void* lut25, const void* tweak,
+                                     const void* bias, const void* flags,
+                                     int64_t m, void* c, void* w,
+                                     void* scratch, void* stream) {
+  if (chunk < 2 || chunk > 258 || chunk % 2 != 0 || lut25 == nullptr ||
+      reinterpret_cast<uintptr_t>(tiles) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Code dec;
+  for (int k = 0; k < 25; ++k) dec.lut25[k] = static_cast<const int8_t*>(lut25)[k];
+  const auto* t = static_cast<const uint8_t*>(tiles);
+  const auto* tw = static_cast<const int32_t*>(tweak);
+  if (chunk == 128) {
+    return launch(RowsVec<Code, 128>{t, tw, dec}, bias, flags, m, c, w,
+                  scratch, stream);
+  }
+  return launch(RowsAny<Code>{t, tw, chunk, dec}, bias, flags, m, c, w,
+                scratch, stream);
+}
+
+// K2 from (m, width) 4-bit score-index tiles (two bases a byte, a nibble
+// each), 16-byte aligned, width in [1, 129]: s is each row's sum of
+// vals16[nibble] over both nibbles of its bytes plus *tweak.  vals16 is 16
+// int8 values in host memory; the rest as gat_pair_combine_tiles.
+extern "C" int gat_pair_combine_score4(const void* tiles, int width,
+                                       const void* vals16, const void* tweak,
+                                       const void* bias, const void* flags,
+                                       int64_t m, void* c, void* w,
+                                       void* scratch, void* stream) {
+  if (width < 1 || width > 129 || vals16 == nullptr ||
+      reinterpret_cast<uintptr_t>(tiles) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Score4 dec{};
+  for (int i = 0; i < 16; ++i) {
+    const auto v = static_cast<uint8_t>(static_cast<const int8_t*>(vals16)[i]);
+    dec.p[i / 4] |= static_cast<uint32_t>(v) << (8 * (i % 4));
+  }
+  const auto* t = static_cast<const uint8_t*>(tiles);
+  const auto* tw = static_cast<const int32_t*>(tweak);
+  if (width == 64) {
+    return launch(RowsVec<Score4, 64>{t, tw, dec}, bias, flags, m, c, w,
+                  scratch, stream);
+  }
+  return launch(RowsAny<Score4>{t, tw, width, dec}, bias, flags, m, c, w,
+                scratch, stream);
 }

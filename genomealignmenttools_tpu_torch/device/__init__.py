@@ -20,9 +20,13 @@ import torch
 PERF = {"h2d_bytes": 0, "d2h_bytes": 0, "dispatches": 0,
         "combine_overflow": 0, "band_problems": 0, "band_out_of_band": 0}
 
-# Kernel launch counters, one per hand-written kernel; a wrapper adds one
-# where it launches its kernel and nowhere else.
-LAUNCHES = {"rescore_chunks": 0, "pair_combine": 0, "band_ext": 0}
+# Kernel launch counters, one per hand-written kernel, and for K2 one per
+# row source: `pair_combine` counts its entries from int32 sums and from int8
+# score tiles, `pair_combine_code` and `pair_combine_score4` those from
+# combined-code and 4-bit tiles.  A wrapper adds one where it launches its
+# kernel and nowhere else.
+LAUNCHES = {"rescore_chunks": 0, "pair_combine": 0, "pair_combine_code": 0,
+            "pair_combine_score4": 0, "band_ext": 0}
 
 
 def perf_reset() -> None:

@@ -31,7 +31,18 @@ k2  the first version (experiments/combine_v1.cu: seven launches over int32
     flight), with 256 threads of 8 chunks (its first shape) or of 4, 128 of
     16, with 2 or 8 steps in flight, and cut after its row sums (the loads
     alone, s written out; the scans and the look-back cost the difference),
-    on the chr1 workload's resident tiles.
+    on the chr1 workload's resident tiles.  Then the other row sources on
+    the same chains' combined-code and 4-bit tiles (GAT_PAIR_TILES=code,
+    score4): the code entry as it is (a lookup a byte in a 256-byte shared
+    table), and the 4-bit entry with its decode as it is (three byte
+    permutes and a __dp4a for four nibbles) and as tried instead: two
+    permutes and two __dp4a against byte masks; a 256-entry shared table of
+    vals[lo] + vals[hi] a byte, one for the block (bank conflicts); the same
+    table with a copy for each lane (conflict-free, 16-bit entries); each
+    against the plain version, twice, and timed in turns beside the int8
+    entry on the same chunks.  With --out, each K2 kernel's SASS
+    instruction counts by opcode are printed (the operations a tile byte
+    that chip_smoke.py's bounds count).
 
 The variants are made by replacing one line of a copy of the source; no
 switch is left in the sources.  With --out the SASS of the current K3 at
@@ -331,6 +342,146 @@ def k2_launcher(lib):
     return launch
 
 
+def k2_format_launcher(lib, kind: str, table):
+    """The code or 4-bit K2 entry from a variant's library: (c, w)."""
+    import numpy as np
+    import torch
+    p = ctypes.c_void_p
+    entry = getattr(lib, f"gat_pair_combine_{kind}")
+    entry.restype = ctypes.c_int
+    entry.argtypes = [p, ctypes.c_int, ctypes.POINTER(ctypes.c_int8), p, p,
+                      p, ctypes.c_int64, p, p, p, p]
+    lib.gat_pair_combine_scratch.restype = ctypes.c_int64
+    lib.gat_pair_combine_scratch.argtypes = [ctypes.c_int64]
+    host = np.ascontiguousarray(table.numpy(), np.int8)
+
+    def launch(tiles, bias, flags):
+        m = bias.numel()
+        c = torch.empty(m, dtype=torch.int32, device=bias.device)
+        w = torch.empty_like(c)
+        scratch = torch.zeros(lib.gat_pair_combine_scratch(m),
+                              dtype=torch.int64, device=bias.device)
+        err = entry(tiles.data_ptr(), tiles.shape[1],
+                    host.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)), None,
+                    bias.data_ptr(), flags.data_ptr(), m, c.data_ptr(),
+                    w.data_ptr(), scratch.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: {err}")
+        return c, w
+    return launch
+
+
+# the 4-bit decode as it is, and the variants tried in its place
+SCORE4_WORD = """  __device__ int32_t word(uint32_t w, int32_t acc) const {
+    acc = __dp4a(static_cast<int32_t>(vals4(w)), 0x01010101, acc);
+    return __dp4a(static_cast<int32_t>(vals4(w >> 16)), 0x01010101, acc);
+  }"""
+SCORE4_PREPARE = "  uint32_t p[4];\n  __device__ void prepare() const {}"
+# the value of nibble n, sign-extended, from the four packed words
+_NIB = ("static_cast<int32_t>(static_cast<int8_t>(__byte_perm(p[n >> 3 << 1],"
+        " p[(n >> 3 << 1) + 1], n & 7)))")
+SCORE4_VARIANTS = {
+    "two permutes, two __dp4a against byte masks": [(SCORE4_WORD, """  \
+__device__ int32_t word(uint32_t w, int32_t acc) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t s = h ? w >> 16 : w;
+      const uint32_t sel = s & 0x7777u;
+      const uint32_t hi = __byte_perm(0u, 0x01010101u, (s >> 1) & 0x4444u);
+      acc = __dp4a(static_cast<int32_t>(__byte_perm(p[0], p[1], sel)),
+                   static_cast<int32_t>(hi ^ 0x01010101u), acc);
+      acc = __dp4a(static_cast<int32_t>(__byte_perm(p[2], p[3], sel)),
+                   static_cast<int32_t>(hi), acc);
+    }
+    return acc;
+  }""")],
+    "a shared table of pair sums, one for the block": [
+        (SCORE4_PREPARE, """  uint32_t p[4];
+  __device__ void prepare() const {
+    for (int b = threadIdx.x; b < 256; b += kThreads) {
+      int n = b & 15;
+      int32_t v = %s;
+      n = b >> 4;
+      pair_sum[b] = v + %s;
+    }
+    __syncthreads();
+  }""" % (_NIB, _NIB)),
+        (SCORE4_WORD, """  __device__ int32_t word(uint32_t w, int32_t acc) const {
+    return acc + pair_sum[w & 0xff] + pair_sum[(w >> 8) & 0xff] +
+           pair_sum[(w >> 16) & 0xff] + pair_sum[w >> 24];
+  }"""),
+        ("// 4-bit score indices", "__shared__ int32_t pair_sum[256];\n\n"
+         "// 4-bit score indices")],
+    "a shared table of pair sums, a copy a lane": [
+        (SCORE4_PREPARE, """  uint32_t p[4];
+  __device__ void prepare() const {
+    for (int i = threadIdx.x; i < 256 * 32; i += kThreads) {
+      const int b = i >> 5;
+      int n = b & 15;
+      int32_t v = %s;
+      n = b >> 4;
+      // entry b of lane l at 16-bit slot ((b >> 1) * 32 + l) * 2 + (b & 1):
+      // lane l's words all lie in bank l
+      lane_sum[((b >> 1) * 32 + (i & 31)) * 2 + (b & 1)] =
+          static_cast<int16_t>(v + %s);
+    }
+    __syncthreads();
+  }""" % (_NIB, _NIB)),
+        (SCORE4_WORD, """  __device__ int32_t word(uint32_t w, int32_t acc) const {
+    const int16_t* t = lane_sum + 2 * (threadIdx.x & 31);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t b = (w >> (8 * k)) & 0xff;
+      acc += t[(b >> 1) * 64 + (b & 1)];
+    }
+    return acc;
+  }"""),
+        ("// 4-bit score indices", "__shared__ int16_t lane_sum[256 * 32];"
+         "\n\n// 4-bit score indices")],
+}
+
+
+def sass_counts(name: str, out_dir: str) -> None:
+    """Per K2 kernel in a dumped library: its instruction count and the
+    count of each opcode, the most frequent first; for the 16-byte-load row
+    sources, the row-sum loop (the loop around the streaming 128-bit loads,
+    LDG.E.EF.128): its instructions, the tile bytes a thread reads in one
+    trip, and their ratio, the integer operations a tile byte that
+    chip_smoke.py's bounds count."""
+    import collections
+    import re
+    path = os.path.join(out_dir, name + ".sass")
+    with open(path) as f:
+        text = f.read()
+    for block in text.split("Function : ")[1:]:
+        fn = block.split("\n", 1)[0].strip()
+        if "combine_kernel" not in fn:
+            continue
+        ins = [(int(a, 16), op, arg) for a, op, arg in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[0-9T] )?([A-Z0-9_.]+)"
+            r"([^;]*);", block)]
+        ops = collections.Counter(op for _, op, _ in ins)
+        src = next((k for k in ("Score8", "Code", "Score4", "SumsGiven")
+                    if k in fn), fn[:40])
+        shape = "RowsVec" if "RowsVec" in fn else (
+            "RowsAny" if "RowsAny" in fn else "")
+        top = ", ".join(f"{op} {n}" for op, n in ops.most_common(10))
+        loop = ""
+        for addr, op, arg in ins:
+            target = re.search(r"0x([0-9a-f]+)", arg) if op == "BRA" else None
+            if target and int(target.group(1), 16) < addr:
+                body = [o for a, o, _ in ins
+                        if int(target.group(1), 16) <= a <= addr]
+                loads = body.count("LDG.E.EF.128")
+                if loads:
+                    loop = (f"; row-sum loop {len(body)} instructions for "
+                            f"{16 * loads} tile bytes a thread: "
+                            f"{len(body) / (16 * loads):.3f} a byte")
+        print(f"[sass] {name}: {src} {shape}: {sum(ops.values())} "
+              f"instructions: {top}{loop}")
+
+
 def experiment_k2(tmp: str, out_dir: str | None) -> None:
     import torch
 
@@ -412,6 +563,57 @@ def experiment_k2(tmp: str, out_dir: str | None) -> None:
     print(f"[k2] chr1 resident: {rows} chunks of {tiles.shape[1]} bytes, byte "
           f"bound {bound:.4f} ms; every variant == plain, twice; ms: "
           + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    if out_dir:
+        sass_counts("combine_now", out_dir)
+
+    # the other row sources on the same chains
+    int8_launch = launch["current (512 threads, 4 chunks a thread, 4 steps "
+                         "in flight)"]
+    libs4 = {"permutes (current)": libs["current (512 threads, 4 chunks a "
+                                        "thread, 4 steps in flight)"]}
+    for i, (name, edits) in enumerate(SCORE4_VARIANTS.items()):
+        libs4[name] = build_variant(f"combine_s4_{i}", src, edits)
+        if out_dir:
+            dump_sass(f"combine_s4_{i}", out_dir)
+            sass_counts(f"combine_s4_{i}", out_dir)
+    saved = os.environ.get("GAT_PAIR_TILES")
+    try:
+        for kind in ("code", "score4"):
+            os.environ["GAT_PAIR_TILES"] = kind
+            fmt = TorchChainScorer(scheme, gc, open_genome(w["t2bit"]),
+                                   open_genome(w["q2bit"]), device=dev,
+                                   mode="pair")
+            pack = fmt._dev._pack(fmt._grouped(chains)[0])
+            if pack.tiles.shape[0] != rows:
+                raise RuntimeError(f"{kind} tiles have other rows")
+            want = pc.pair_combine_scan_tiles_plain(
+                pack.tiles, bias, flags, None, kind, pack.table)
+            chosen = libs4 if kind == "score4" else {
+                "lookup (current)": libs4["permutes (current)"]}
+            fns = {name: k2_format_launcher(lib, kind, pack.table)
+                   for name, lib in chosen.items()}
+            for name, fn in fns.items():
+                for _ in range(2):
+                    got = fn(pack.tiles, bias, flags)
+                    if not all(torch.equal(g, x) for g, x in zip(got, want)):
+                        raise RuntimeError(f"K2 {kind} {name} != plain")
+            variants = {"int8 entry, same chunks":
+                        lambda: int8_launch(tiles, bias, flags)}
+            variants.update({name: (lambda fn=fn, t=pack.tiles: fn(
+                t, bias, flags)) for name, fn in fns.items()})
+            ms = turns(variants, 20)
+            n_bytes = pack.tiles.numel() + 16 * rows
+            print(f"[k2 {kind}] chr1 resident: {rows} chunks of "
+                  f"{pack.tiles.shape[1]} bytes, byte bound "
+                  f"{1e3 * n_bytes / 3.35e12:.4f} ms; every variant == "
+                  f"plain, twice; ms: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+            del fmt, pack, want
+    finally:
+        if saved is None:
+            os.environ.pop("GAT_PAIR_TILES", None)
+        else:
+            os.environ["GAT_PAIR_TILES"] = saved
 
 
 def main(argv: list[str]) -> int:

@@ -13,20 +13,35 @@ Per chunk, three dependent segmented scans that restart at every chain start
     w       = running max of sampled
 
 and per chain global = c[end], local = max(w[end], 0) (pallas_combine.py:
-18-28), all int32.  K2 (csrc/combine.cu) takes s from one of two sources:
-`pair_combine_scan_tiles` sums each row of the (M, chunk) int8 score tiles
-(plus an optional int32 tweak) inside the kernel, in the same launch as the
-scans: the resident pass; `pair_combine_scan` takes int32 s.  Each launches
-K2 on CUDA tensors and runs its plain version on CPU tensors.  The plain
-version has the kernel's structure, with the tile size as a parameter: a
-scan within each tile, a scan of the tile aggregates, and the carry of the
-tiles before composed into each tile.  Integer scans are associative, so
-every tile size gives the same bits; the CPU tests hold tiny tiles against
-the JAX kernel's 32768-chunk tiles to exercise the carry composition.
+18-28), all int32.  K2 (csrc/combine.cu) takes s from one of four sources:
+`pair_combine_scan` takes int32 s; `pair_combine_scan_tiles` makes s inside
+the kernel, in the same launch as the scans, as the int32 sum of each row of
+(M, width) tiles plus an optional int32 tweak, in one of the three tile
+formats of the reference's PairBlockScorer (pair_rescore.py:345-371):
+
+    kind      tiles                                table
+    score8    int8 scores, a byte a base            none
+    code      uint8 q * 5 + t, a byte a base        int8[25] scores
+    score4    uint8, two 4-bit indices a byte       int8[16] values
+
+A code byte scores table[c] where q and t are both below 4 and 0 otherwise
+(N rows and columns, the pad 24, any byte of 25 or more), as _pair_vals
+(pair_rescore.py:80-92) decodes it; a score4 byte scores table[b & 15] +
+table[b >> 4] (_score4_vals, :143-155).  Each wrapper launches K2 on CUDA
+tensors and runs its plain version on CPU tensors; LAUNCHES counts each row
+source under its own key.  The plain version has the kernel's structure,
+with the tile size as a parameter: a scan within each tile, a scan of the
+tile aggregates, and the carry of the tiles before composed into each tile.
+Integer scans are associative, so every tile size gives the same bits; the
+CPU tests hold tiny tiles against the JAX kernel's 32768-chunk tiles to
+exercise the carry composition.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from .. import _build
@@ -42,6 +57,17 @@ I32_MIN = -(2 ** 31) + 1   # not INT32_MIN: the sentinel of pallas_combine.py:50
 
 TILE = 2048     # chunks per tile of the CUDA kernel (csrc/combine.cu kTile)
 CHUNK_MIN, CHUNK_MAX = 2, 258   # even tile widths K2 takes (258 * 127 < 2^15)
+
+# tile formats: K2's row sources, their tile dtype, the length of the table
+# they take, their C entry and their LAUNCHES key
+KINDS = ("score8", "code", "score4")
+_DTYPE = {"score8": torch.int8, "code": torch.uint8, "score4": torch.uint8}
+_TABLE_LEN = {"score8": None, "code": 25, "score4": 16}
+_ENTRY = {"score8": "gat_pair_combine_tiles", "code": "gat_pair_combine_code",
+          "score4": "gat_pair_combine_score4"}
+LAUNCH_KEY = {"score8": "pair_combine", "code": "pair_combine_code",
+              "score4": "pair_combine_score4"}
+_ROWS_AT_ONCE = 1 << 16   # rows the plain decoders index at a time
 
 
 def _check_args(s, bias, flags, first: str = "s") -> None:
@@ -119,24 +145,42 @@ def pair_combine_scan_plain(s, bias, flags, tile: int = TILE):
     return c, w
 
 
-def _check_tiles(tiles, bias, flags, tweak) -> None:
+def _check_widths(kind: str, width: int) -> None:
+    if kind == "score4":
+        if not 1 <= width <= CHUNK_MAX // 2:
+            raise ValueError(f"score4 tile width {width}: must be between 1 "
+                             f"and {CHUNK_MAX // 2} bytes")
+    elif not CHUNK_MIN <= width <= CHUNK_MAX or width % 2:
+        raise ValueError(f"tile width {width}: must be even and between "
+                         f"{CHUNK_MIN} and {CHUNK_MAX}")
+
+
+def _check_tiles(tiles, bias, flags, tweak, kind="score8", table=None):
+    if kind not in KINDS:
+        raise ValueError(f"tile kind {kind!r}: use one of {', '.join(KINDS)}")
     _check_args(bias, bias, flags, first="bias")
     if tiles.device != bias.device:
         raise ValueError(f"tiles are on {tiles.device}, bias on {bias.device}")
-    if tiles.dtype != torch.int8:
-        raise TypeError(f"tiles must be torch.int8, got {tiles.dtype}")
+    if tiles.dtype != _DTYPE[kind]:
+        raise TypeError(f"{kind} tiles must be {_DTYPE[kind]}, got "
+                        f"{tiles.dtype}")
     if tiles.dim() != 2 or not tiles.is_contiguous():
         raise ValueError("tiles must be a contiguous 2-D tensor")
     if tiles.shape[0] != bias.numel():
         raise ValueError(f"tiles have {tiles.shape[0]} rows, bias "
                          f"{bias.numel()} chunks")
-    chunk = tiles.shape[1]
-    if not CHUNK_MIN <= chunk <= CHUNK_MAX or chunk % 2:
-        raise ValueError(f"tile width {chunk}: must be even and between "
-                         f"{CHUNK_MIN} and {CHUNK_MAX}")
+    _check_widths(kind, tiles.shape[1])
     if tiles.data_ptr() % 16:
         raise ValueError("tiles must start on a 16-byte boundary (K2 reads "
                          "rows 16 bytes at a time)")
+    n = _TABLE_LEN[kind]
+    if n is None:
+        if table is not None:
+            raise ValueError("score8 tiles take no table")
+    elif (not isinstance(table, torch.Tensor) or table.device.type != "cpu"
+          or table.dtype != torch.int8 or table.shape != (n,)):
+        raise TypeError(f"{kind} tiles need a table of {n} torch.int8 "
+                        f"values on the CPU")
     if tweak is not None:
         if tweak.device != bias.device:
             raise ValueError(f"tweak is on {tweak.device}, bias on "
@@ -145,19 +189,57 @@ def _check_tiles(tiles, bias, flags, tweak) -> None:
             raise TypeError("tweak must be one torch.int32 value")
 
 
+def code_table(lut25) -> torch.Tensor:
+    """int32[256] score of every byte as a combined code: lut25[c] where
+    q = c // 5 and t = c % 5 are both below 4, 0 for every other byte."""
+    c = torch.arange(256)
+    live = (c < 25) & (c // 5 < 4) & (c % 5 < 4)
+    out = torch.zeros(256, dtype=torch.int32)
+    out[live] = torch.as_tensor(lut25).to(torch.int32).reshape(-1)[c[live]]
+    return out
+
+
+def tile_row_sums(tiles, kind: str = "score8", table=None) -> torch.Tensor:
+    """(M,) int32 row sums of (M, width) tiles of the format `kind`, decoded
+    with torch ops on the tiles' device: the counterparts of the XLA jits
+    _chunk_sums_i32_scored, _chunk_sums_i32 and _chunk_sums_i32_scored4
+    (pair_rescore.py:131-134, 600-603, 164-167)."""
+    if kind == "score8":
+        return tiles.sum(dim=1, dtype=torch.int32)
+    if kind == "code":
+        values = code_table(table).to(tiles.device)
+    elif kind == "score4":
+        values = torch.as_tensor(table).to(torch.int32).to(tiles.device)
+    else:
+        raise ValueError(f"tile kind {kind!r}: use one of {', '.join(KINDS)}")
+    out = torch.empty(tiles.shape[0], dtype=torch.int32, device=tiles.device)
+    for lo in range(0, tiles.shape[0], _ROWS_AT_ONCE):
+        part = tiles[lo:lo + _ROWS_AT_ONCE].to(torch.int64)
+        if kind == "code":
+            out[lo:lo + _ROWS_AT_ONCE] = values[part].sum(dim=1,
+                                                           dtype=torch.int32)
+        else:
+            out[lo:lo + _ROWS_AT_ONCE] = (
+                values[part & 15].sum(dim=1, dtype=torch.int32)
+                + values[part >> 4].sum(dim=1, dtype=torch.int32))
+    return out
+
+
 def pair_combine_scan_tiles_plain(tiles, bias, flags, tweak=None,
+                                  kind: str = "score8", table=None,
                                   tile: int = TILE):
     """(c, w) int32 per chunk in plain PyTorch: the int32 row sums of the
-    int8 tiles, plus the tweak, through pair_combine_scan_plain."""
-    s = tiles.sum(dim=1, dtype=torch.int32)
+    tiles (tile_row_sums), plus the tweak, through pair_combine_scan_plain."""
+    s = tile_row_sums(tiles, kind, table)
     if tweak is not None:
         s = s + tweak.reshape(())
     return pair_combine_scan_plain(s, bias, flags, tile)
 
 
-def _launch(entry, m: int, dev, *args):
+def _launch(entry, key: str, m: int, dev, *args):
     """Launch one of K2's entries on the current stream of `dev`: m int32
-    outputs c and w, and the zeroed scratch the kernel's look-back needs."""
+    outputs c and w, and the zeroed scratch the kernel's look-back needs;
+    counts the launch under LAUNCHES[key]."""
     lib = _build.load_library()
     c = torch.empty(m, dtype=torch.int32, device=dev)
     w = torch.empty(m, dtype=torch.int32, device=dev)
@@ -172,22 +254,26 @@ def _launch(entry, m: int, dev, *args):
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: "
                            + lib.gat_cuda_error_string(err).decode())
-    LAUNCHES["pair_combine"] += 1
+    LAUNCHES[key] += 1
     return c, w
 
 
 def _launch_kernel(s, bias, flags):
     """K2 from int32 chunk sums, on the tensors' CUDA device."""
-    return _launch("gat_pair_combine", s.numel(), s.device, s.data_ptr(),
-                   bias.data_ptr(), flags.data_ptr())
+    return _launch("gat_pair_combine", "pair_combine", s.numel(), s.device,
+                   s.data_ptr(), bias.data_ptr(), flags.data_ptr())
 
 
-def _launch_tiles(tiles, bias, flags, tweak=None):
-    """K2 from int8 score tiles, on the tensors' CUDA device."""
-    return _launch("gat_pair_combine_tiles", bias.numel(), bias.device,
-                   tiles.data_ptr(), tiles.shape[1],
-                   None if tweak is None else tweak.data_ptr(),
-                   bias.data_ptr(), flags.data_ptr())
+def _launch_tiles(tiles, bias, flags, tweak=None, kind: str = "score8",
+                  table=None):
+    """K2 from tiles of the format `kind`, on the tensors' CUDA device."""
+    tw = None if tweak is None else tweak.data_ptr()
+    args = [tiles.data_ptr(), tiles.shape[1]]
+    if kind != "score8":
+        host = np.ascontiguousarray(table.numpy(), np.int8)
+        args.append(host.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)))
+    return _launch(_ENTRY[kind], LAUNCH_KEY[kind], bias.numel(), bias.device,
+                   *args, tw, bias.data_ptr(), flags.data_ptr())
 
 
 def pair_combine_scan(s, bias, flags):
@@ -201,17 +287,21 @@ def pair_combine_scan(s, bias, flags):
     return pair_combine_scan_plain(s, bias, flags)
 
 
-def pair_combine_scan_tiles(tiles, bias, flags, tweak=None):
-    """(c, w) int32 per chunk from (M, chunk) int8 score tiles (s = each
-    row's int32 sum, plus `tweak`, one int32 value on the same device, if
-    given), gap biases and flags, any M.  On CUDA tensors this launches K2
-    (csrc/combine.cu), which reads every tile byte once and scans in the
-    same launch, or raises; on CPU tensors it runs the plain version."""
-    _check_tiles(tiles, bias, flags, tweak)
+def pair_combine_scan_tiles(tiles, bias, flags, tweak=None,
+                            kind: str = "score8", table=None):
+    """(c, w) int32 per chunk from (M, width) tiles of the format `kind`
+    (s = each row's int32 sum, plus `tweak`, one int32 value on the same
+    device, if given), gap biases and flags, any M.  `table` is the
+    format's int8 table on the CPU (module docstring).  On CUDA tensors this
+    launches K2's entry of the format (csrc/combine.cu), which reads every
+    tile byte once and scans in the same launch, or raises; on CPU tensors it
+    runs the plain version."""
+    _check_tiles(tiles, bias, flags, tweak, kind, table)
     PERF["dispatches"] += 1
     if bias.device.type == "cuda":
-        return _launch_tiles(tiles, bias, flags, tweak)
-    return pair_combine_scan_tiles_plain(tiles, bias, flags, tweak)
+        return _launch_tiles(tiles, bias, flags, tweak, kind, table)
+    return pair_combine_scan_tiles_plain(tiles, bias, flags, tweak, kind,
+                                         table)
 
 
 def pair_combine_finish(c, w, end_idx):

@@ -1,29 +1,46 @@
-"""Pair-mode chain rescoring: int8 score tiles resident on the device, and
-per-chain scores from K2 with only (n_chains, 2) fetched.
+"""Pair-mode chain rescoring: tiles of the aligned bases resident on the
+device, and per-chain scores from K2 with only (n_chains, 2) fetched.
 
-Counterpart of genomealignmenttools_tpu/ops/pair_rescore.py with its int8
-score tiles (PairBlockScorer and PairChainScorer, pair_rescore.py:325-574,
-786-978).  The host cuts the blocks into chunks of at most `chunk` bases
-and the native packer (`gat_pack_pairs_scored`, native/pairpack.cpp:98)
-writes one int8 substitution score per aligned base, zero past a chunk's
-end, into (m, chunk) tiles, uploaded once and cached by the identity of the
-blocks arrays.  Then:
+Counterpart of genomealignmenttools_tpu/ops/pair_rescore.py
+(PairBlockScorer and PairChainScorer, pair_rescore.py:325-574, 786-978).
+The host cuts the blocks into chunks of at most `chunk` bases and a native
+packer (native/pairpack.cpp) writes one row of tiles a chunk in the format
+GAT_PAIR_TILES names, chosen as the reference chooses it (:345-371):
 
-    TorchPairBlockScorer   torch row sums -> host, for the native host
-                           combine (chunk_scores_multi, block_scores_multi)
-    TorchPairChainScorer   one K2 launch (ops/pair_combine.py) that reads
-                           every tile byte once, sums the rows and runs the
-                           three scans -> finish, one (n_chains, 2) int32
-                           fetch (score, score_chained)
+    unset    int8 score tiles: lut8[q * 5 + t] a base, pad 0
+             (`gat_pack_pairs_scored`, fill_scored)
+    code     combined codes q * 5 + t a base, pad 24 = N/N
+             (`gat_pack_pairs_combined`, fill_combined)
+    score4   4-bit indices into the matrix's distinct values, two bases a
+             byte, pad nibble 0 = value 0 (`gat_pack_pairs_scored4`,
+             fill_scored4); int8 tiles where the matrix has more than 16
+             distinct values (pack_vals16 gives None)
 
+Every format needs a matrix of int8 entries with a zero N row and column:
+the reference asserts both (pack_lut, pallas_rescore.py:175-178) before it
+looks at GAT_PAIR_TILES, and so does lut8_of here.  The tiles are uploaded
+once and cached by the identity of the blocks arrays.  Then:
+
+    TorchPairBlockScorer   torch row sums of the format -> host, for the
+                           native host combine (chunk_scores_multi,
+                           block_scores_multi)
+    TorchPairChainScorer   one launch of the format's K2 entry
+                           (ops/pair_combine.py) that reads every tile byte
+                           once, sums the rows and runs the three scans ->
+                           finish, one (n_chains, 2) int32 fetch (score,
+                           score_chained)
+
+`pack_pairs`, `bucket_rows` and `pack_vals16` give the reference's arrays
+byte for byte; parallel/mesh.py's ShardedPairScorer takes pack_pairs' tiles.
 `pair_chain_scores_plain` is the reference's staged combine
 (`_pair_chain_scores`, pair_rescore.py:606-745) in torch int64; it is the
 oracle that K2 and its plain version are held against, and is on no path.
 
-Not ported (TPU tuning with the same outputs; to re-decide on an H100
-measurement, ROADMAP.md): score4 nibble tiles, combined-code tiles,
-GAT_PAIR_SUM=dot, the fixed-shape TILE_ROWS streaming, the tile and meta
-shardings, and the staged/fused switch: on the card the port always uses K2.
+Re-decided for the H100 and not ported (ROADMAP.md): GAT_PAIR_SUM=dot (K2's
+row sum is already a __dp4a against ones), the fixed-shape TILE_ROWS
+streaming (it served fixed XLA compile shapes), the tile and meta shardings
+and the staged/fused switch GAT_PAIR_COMBINE (they served GSPMD; on the card
+the port always runs K2).
 """
 
 from __future__ import annotations
@@ -41,11 +58,14 @@ from ..native import get_lib
 from ..utils.bigmem import big_empty
 from ..utils.profiling import phase
 from .pair_combine import (CHUNK_MAX, CHUNK_MIN, F_FIRST, F_SAMPLE, F_START,
-                           TILE, pair_combine_finish, pair_combine_scan_tiles)
+                           TILE, pair_combine_finish, pair_combine_scan_tiles,
+                           tile_row_sums)
 from .rescore import _n_threads
 from .window_rescore import chunk_blocks
 
 CHUNK = 128   # bases per tile row unless GAT_PAIR_CHUNK says otherwise
+ROW_PAD = 1024   # pack_pairs' least row count (bucket_rows)
+TILE_FORMATS = {None: "score8", "code": "code", "score4": "score4"}
 
 # score_chained's feedback: no int32 score equals it, so the comparison is
 # always false but makes every pass depend on the one before it
@@ -69,14 +89,112 @@ def pair_chunk() -> int:
     return chunk
 
 
+def pair_tiles() -> str:
+    """The tile format GAT_PAIR_TILES names, as a K2 kind (pair_combine.
+    KINDS): unset gives int8 score tiles ("score8"), `code` combined codes,
+    `score4` 4-bit indices.  The reference reads only those two values and
+    takes int8 tiles for any other (pair_rescore.py:362-369); the port
+    raises on any other."""
+    raw = os.environ.get("GAT_PAIR_TILES")
+    if raw not in TILE_FORMATS:
+        raise ValueError(f"GAT_PAIR_TILES={raw!r}: leave it unset (int8 "
+                         f"score tiles) or set it to code or score4")
+    return TILE_FORMATS[raw]
+
+
 def lut8_of(lut: np.ndarray) -> np.ndarray:
-    """int8[25] substitution scores indexed [q * 5 + t]; raises unless every
-    entry of the 5x5 matrix fits int8 (the reference then packs combined
-    codes instead, which the port does not have)."""
+    """int8[25] substitution scores indexed [q * 5 + t].  Raises unless
+    every entry of the 5x5 matrix fits int8 and its N row and column are
+    zero, in every tile format, as the reference's pack_lut asserts
+    (pallas_rescore.py:175-178, called by PairBlockScorer.__init__ whatever
+    GAT_PAIR_TILES says; tests/test_device_rescore.py:232-236)."""
     lut55 = np.asarray(lut, np.int64)[:5, :5]
     if lut55.shape != (5, 5) or np.any((lut55 < -128) | (lut55 > 127)):
         raise ValueError("pair mode needs a 5x5 score matrix of int8 values")
+    if lut55[4].any() or lut55[:, 4].any():
+        raise ValueError("pair mode needs a score matrix whose N row and "
+                         "column are zero")
     return lut55.astype(np.int8).reshape(25)
+
+
+def bucket_rows(m: int, floor: int = ROW_PAD) -> int:
+    """m rounded up to the ladder {2^k * f, f in 1, 1.25, 1.5, 1.75} from
+    `floor` (pair_rescore.py:62-77): pack_pairs' row count."""
+    if m <= floor:
+        return floor
+    p = floor
+    while p < m:
+        p *= 2
+    half = p // 2
+    for f in (10, 12, 14):
+        c = half * f // 8
+        if c >= m:
+            return c
+    return p
+
+
+def pack_vals16(lut: np.ndarray):
+    """(idx_lut25 uint8[25], vals_packed int32[4]) for 4-bit score-index
+    tiles, or None when the matrix has more than 16 distinct values or one
+    outside int8 (pair_rescore.py:170-189).  Value 0 is index 0, so a pad
+    nibble scores 0; value i is byte i % 4 of vals_packed[i // 4]."""
+    lut55 = np.asarray(lut)[:5, :5]
+    vals = sorted({int(v) for v in lut55.flatten()} | {0},
+                  key=lambda v: (v != 0, v))
+    if len(vals) > 16 or any(not -128 <= v <= 127 for v in vals):
+        return None
+    vals += [0] * (16 - len(vals))
+    of = {v: i for i, v in enumerate(vals)}
+    idx_lut25 = np.zeros(25, np.uint8)
+    for q in range(5):
+        for t in range(5):
+            idx_lut25[q * 5 + t] = of[int(lut55[q, t])]
+    packed = np.zeros(4, np.int64)
+    for i, v in enumerate(vals):
+        packed[i // 4] |= (v & 0xFF) << ((i % 4) * 8)
+    return idx_lut25, packed.astype(np.uint32).astype(np.int32)
+
+
+def vals16_of(vals_packed: np.ndarray) -> np.ndarray:
+    """The 16 int8 values of pack_vals16's vals_packed, in index order."""
+    return np.ascontiguousarray(vals_packed, "<i4").view(np.int8).copy()
+
+
+def _check_chunks(t_codes, q_codes, t_off, q_off, length, k: int,
+                  chunk: int) -> np.ndarray:
+    """Raises before a packer could read outside a genome; returns the
+    lengths as contiguous int64."""
+    length = np.ascontiguousarray(length, np.int64)
+    if k and (length.min() < 0 or length.max() > chunk
+              or min(t_off.min(), q_off.min()) < 0
+              or (t_off + length).max() > t_codes.shape[0]
+              or (q_off + length).max() > q_codes.shape[0]):
+        raise IndexError("a chunk lies outside its genome code array or is "
+                         f"not 0..{chunk} bases long")
+    return length
+
+
+def _pack_native(fn, t_codes, q_codes, t_off, q_off, length, k: int,
+                 chunk: int, *rest) -> None:
+    """Call one of the native packers on contiguous arrays; `rest` are its
+    arguments after the chunk width (tables and the output), as ctypes
+    pointers."""
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    t_off = np.ascontiguousarray(t_off, np.int64)
+    q_off = np.ascontiguousarray(q_off, np.int64)
+    fn(t_codes.ctypes.data_as(u8p), q_codes.ctypes.data_as(u8p),
+       t_off.ctypes.data_as(i64p), q_off.ctypes.data_as(i64p),
+       length.ctypes.data_as(i64p), k, chunk, *rest, _n_threads())
+
+
+def _combined_codes(t_codes, q_codes, t_off, q_off, length, chunk: int):
+    """numpy: (k, chunk) int combined codes and the mask of live bases."""
+    lane = np.arange(chunk, dtype=np.int64)
+    t_idx = np.minimum(t_off[:, None] + lane, t_codes.shape[0] - 1)
+    q_idx = np.minimum(q_off[:, None] + lane, q_codes.shape[0] - 1)
+    combined = q_codes[q_idx].astype(np.intp) * 5 + t_codes[t_idx]
+    return combined, lane < length[:, None]
 
 
 def fill_scored(t_codes, q_codes, t_off, q_off, length, out, lut8) -> None:
@@ -86,45 +204,95 @@ def fill_scored(t_codes, q_codes, t_off, q_off, length, out, lut8) -> None:
     (pair_rescore.py:257-279).  Raises before the packer could read outside
     a genome."""
     k, chunk = out.shape
-    length = np.ascontiguousarray(length, np.int64)
-    if k and (length.min() < 0 or length.max() > chunk
-              or min(t_off.min(), q_off.min()) < 0
-              or (t_off + length).max() > t_codes.shape[0]
-              or (q_off + length).max() > q_codes.shape[0]):
-        raise IndexError("a chunk lies outside its genome code array or is "
-                         f"not 0..{chunk} bases long")
+    length = _check_chunks(t_codes, q_codes, t_off, q_off, length, k, chunk)
     t_codes = np.ascontiguousarray(t_codes, np.uint8)
     q_codes = np.ascontiguousarray(q_codes, np.uint8)
     lib = get_lib()
     if lib is not None:
-        u8p = ctypes.POINTER(ctypes.c_uint8)
         i8p = ctypes.POINTER(ctypes.c_int8)
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        t_off = np.ascontiguousarray(t_off, np.int64)
-        q_off = np.ascontiguousarray(q_off, np.int64)
-        lib.gat_pack_pairs_scored(
-            t_codes.ctypes.data_as(u8p), q_codes.ctypes.data_as(u8p),
-            t_off.ctypes.data_as(i64p), q_off.ctypes.data_as(i64p),
-            length.ctypes.data_as(i64p), k, chunk,
-            lut8.ctypes.data_as(i8p), out.ctypes.data_as(i8p), _n_threads())
+        _pack_native(lib.gat_pack_pairs_scored, t_codes, q_codes, t_off,
+                     q_off, length, k, chunk, lut8.ctypes.data_as(i8p),
+                     out.ctypes.data_as(i8p))
         return
-    lane = np.arange(chunk, dtype=np.int64)
-    t_idx = np.minimum(t_off[:, None] + lane, t_codes.shape[0] - 1)
-    q_idx = np.minimum(q_off[:, None] + lane, q_codes.shape[0] - 1)
-    combined = q_codes[q_idx].astype(np.intp) * 5 + t_codes[t_idx]
-    out[:] = np.where(lane < length[:, None], lut8[combined], np.int8(0))
+    combined, live = _combined_codes(t_codes, q_codes, t_off, q_off, length,
+                                     chunk)
+    out[:] = np.where(live, lut8[combined], np.int8(0))
+
+
+def fill_combined(t_codes, q_codes, t_off, q_off, length, out) -> None:
+    """Fill the (k, chunk) uint8 rows `out` with the combined code q * 5 + t
+    per aligned base, 24 (N/N) past each chunk's length: the native packer,
+    or numpy under GAT_NATIVE=0, as _fill_combined does (pair_rescore.py:
+    233-255), with fill_scored's bounds check."""
+    k, chunk = out.shape
+    length = _check_chunks(t_codes, q_codes, t_off, q_off, length, k, chunk)
+    t_codes = np.ascontiguousarray(t_codes, np.uint8)
+    q_codes = np.ascontiguousarray(q_codes, np.uint8)
+    lib = get_lib()
+    if lib is not None:
+        _pack_native(lib.gat_pack_pairs_combined, t_codes, q_codes, t_off,
+                     q_off, length, k, chunk,
+                     out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+        return
+    combined, live = _combined_codes(t_codes, q_codes, t_off, q_off, length,
+                                     chunk)
+    out[:] = np.where(live, combined, 24).astype(np.uint8)
+
+
+def fill_scored4(t_codes, q_codes, t_off, q_off, length, out,
+                 idx_lut25) -> None:
+    """Fill the (k, chunk // 2) uint8 rows `out` with 4-bit score indices,
+    idx_lut25[q * 5 + t] per aligned base, base 2i in the low nibble of byte
+    i and base 2i + 1 in the high one, 0 past each chunk's length: the
+    native packer, or numpy under GAT_NATIVE=0, as _fill_scored4 does
+    (pair_rescore.py:283-306), with fill_scored's bounds check."""
+    k, chunk = out.shape[0], 2 * out.shape[1]
+    length = _check_chunks(t_codes, q_codes, t_off, q_off, length, k, chunk)
+    t_codes = np.ascontiguousarray(t_codes, np.uint8)
+    q_codes = np.ascontiguousarray(q_codes, np.uint8)
+    idx_lut25 = np.ascontiguousarray(idx_lut25, np.uint8)
+    lib = get_lib()
+    if lib is not None:
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        _pack_native(lib.gat_pack_pairs_scored4, t_codes, q_codes, t_off,
+                     q_off, length, k, chunk, idx_lut25.ctypes.data_as(u8p),
+                     out.ctypes.data_as(u8p))
+        return
+    combined, live = _combined_codes(t_codes, q_codes, t_off, q_off, length,
+                                     chunk)
+    idx = np.where(live, idx_lut25[combined], np.uint8(0))
+    out[:] = idx[:, 0::2] | (idx[:, 1::2] << 4)
+
+
+def pack_pairs(t_codes: np.ndarray, q_codes: np.ndarray, blocks: np.ndarray,
+               chunk: int | None = None):
+    """(c8 uint8 (bucket_rows(m), chunk), c_block int64[m], m): the combined
+    q * 5 + t tiles of one (t, q, strand) group's blocks, rows past m all 24
+    (N/N), as the reference's pack_pairs (pair_rescore.py:309-322) writes
+    them; chunk defaults to pair_chunk()."""
+    chunk = pair_chunk() if chunk is None else chunk
+    t_off, q_off, length, c_block = chunk_blocks(blocks, chunk)
+    m = t_off.shape[0]
+    c8 = np.empty((bucket_rows(m), chunk), np.uint8)
+    c8[m:] = 24
+    fill_combined(t_codes, q_codes, t_off, q_off, length, c8[:m])
+    return c8, c_block, m
 
 
 class PairPack(NamedTuple):
-    tiles: torch.Tensor      # (m_pad, chunk) int8 on the device
+    tiles: torch.Tensor      # (m_pad, width) tiles of `kind` on the device
     c_block: np.ndarray      # block (across jobs) of each of the m chunks
-    m: int                   # real chunks; rows m..m_pad are zero
+    m: int                   # real chunks; rows m..m_pad are pad rows
     n_blocks: int
+    kind: str                # "score8", "code" or "score4" (pair_combine)
+    table: torch.Tensor | None   # the kind's int8 table on the CPU
 
 
 class TorchPairBlockScorer:
-    """Block scorer over int8 score tiles resident on one device; the
-    contract of PairBlockScorer (pair_rescore.py:325-574) with score tiles.
+    """Block scorer over tiles resident on one device, in the format
+    GAT_PAIR_TILES names (`kind`: pair_tiles, and int8 where score4 finds
+    more than 16 distinct values); the contract of PairBlockScorer
+    (pair_rescore.py:325-574).
 
     `host_native` is False, as WindowBlockScorer's, so chainCleaner and
     chainNet -rescore batch their sub-chains through score_chains.  With
@@ -138,12 +306,23 @@ class TorchPairBlockScorer:
     def __init__(self, lut: np.ndarray, t_genome, q_genome,
                  device: str | torch.device, host_native: bool = False):
         self.host_native = host_native
+        self.kind, self.table = "score8", None
         if host_native:
             # flat [q * 5 + t], padded to 256 so any byte value indexes safely
             self.lut25 = np.zeros(256, np.int32)
             self.lut25[:25] = np.asarray(lut, np.int64)[:5, :5].reshape(25)
         else:
             self.lut8 = lut8_of(lut)
+            self.kind = pair_tiles()
+            if self.kind == "code":
+                self.table = torch.from_numpy(self.lut8.copy())
+            elif self.kind == "score4":
+                v16 = pack_vals16(lut)
+                if v16 is None:
+                    self.kind = "score8"
+                else:
+                    self.idx_lut25 = v16[0]
+                    self.table = torch.from_numpy(vals16_of(v16[1]))
         self.chunk = pair_chunk()
         self.t_genome = t_genome
         self.q_genome = q_genome
@@ -151,9 +330,10 @@ class TorchPairBlockScorer:
         self._pack_cache: dict = {}
 
     def _pack(self, jobs) -> PairPack:
-        """Tiles of every job's chunks, rows padded with zeros to a multiple
-        of K2's tile; cached by the identity of the jobs' blocks arrays,
-        which the cache pins (_pack_cached, pair_rescore.py:427-436)."""
+        """Tiles of every job's chunks in the scorer's format, pad rows up
+        to a multiple of K2's tile (0 for int8 and nibbles, 24 for codes);
+        cached by the identity of the jobs' blocks arrays, which the cache
+        pins (_pack_cached, pair_rescore.py:427-436)."""
         key = tuple(id(b) for (_, _, _, b) in jobs)
         hit = self._pack_cache.get(key)
         if hit is not None and all(a is b for a, (_, _, _, b) in
@@ -171,13 +351,21 @@ class TorchPairBlockScorer:
                 n_blocks += blocks.shape[0]
             m = sum(p[2].shape[0] for p in parts)
             m_pad = -(-m // TILE) * TILE
-            s8 = big_empty((m_pad, self.chunk), np.int8)
-            s8[m:] = 0
+            width = self.chunk // 2 if self.kind == "score4" else self.chunk
+            s8 = big_empty((m_pad, width),
+                           np.int8 if self.kind == "score8" else np.uint8)
+            s8[m:] = 24 if self.kind == "code" else 0
             row = 0
             for (tc, qc, t_off, q_off, length) in parts:
                 k = t_off.shape[0]
-                fill_scored(tc, qc, t_off, q_off, length, s8[row:row + k],
-                            self.lut8)
+                out = s8[row:row + k]
+                if self.kind == "code":
+                    fill_combined(tc, qc, t_off, q_off, length, out)
+                elif self.kind == "score4":
+                    fill_scored4(tc, qc, t_off, q_off, length, out,
+                                 self.idx_lut25)
+                else:
+                    fill_scored(tc, qc, t_off, q_off, length, out, self.lut8)
                 row += k
         with phase("rescore: pair tiles to device"):
             tiles = torch.from_numpy(s8).to(self.device)
@@ -185,18 +373,19 @@ class TorchPairBlockScorer:
             PERF["h2d_bytes"] += s8.nbytes
         c_block = (np.concatenate(c_blocks) if c_blocks
                    else np.zeros(0, np.int64))
-        pack = PairPack(tiles, c_block, m, n_blocks)
+        pack = PairPack(tiles, c_block, m, n_blocks, self.kind, self.table)
         if len(self._pack_cache) > 16:
             self._pack_cache.clear()
         self._pack_cache[key] = ([b for (_, _, _, b) in jobs], pack)
         return pack
 
     def chunk_sums(self, jobs) -> torch.Tensor:
-        """(m_pad,) int32 chunk sums on the device, pad rows 0 (the XLA row
-        sum _chunk_sums_i32_scored, pair_rescore.py:131-134)."""
-        tiles = self._pack(jobs).tiles
+        """(m_pad,) int32 chunk sums on the device, pad rows 0: the format's
+        row sums in torch ops (tile_row_sums, the XLA jits _chunk_sums_i32*
+        of pair_rescore.py)."""
+        pack = self._pack(jobs)
         PERF["dispatches"] += 1
-        return tiles.sum(dim=1, dtype=torch.int32)
+        return tile_row_sums(pack.tiles, pack.kind, pack.table)
 
     def chunk_scores_multi(self, jobs):
         """(chunk_scores int32[m], c_block int64[m], n_blocks) across jobs
@@ -371,10 +560,11 @@ class TorchPairChainScorer:
         return meta
 
     def _pass(self, jobs, meta: PairMeta, tweak=None) -> torch.Tensor:
-        """One pass: K2 from the resident tiles (row sums plus `tweak`, and
-        the scans, in one launch), then the finish."""
-        tiles = self.pair._pack(jobs).tiles
-        c, w = pair_combine_scan_tiles(tiles, meta.bias, meta.flags, tweak)
+        """One pass: the format's K2 entry from the resident tiles (row sums
+        plus `tweak`, and the scans, in one launch), then the finish."""
+        pack = self.pair._pack(jobs)
+        c, w = pair_combine_scan_tiles(pack.tiles, meta.bias, meta.flags,
+                                       tweak, pack.kind, pack.table)
         return pair_combine_finish(c, w, meta.end_idx)
 
     def score_async(self, jobs, chain_nblocks) -> torch.Tensor:
@@ -412,9 +602,11 @@ class TorchPairChainScorer:
         return out.cpu().numpy()
 
     def resident_hbm_bytes(self, jobs, chain_nblocks) -> int:
-        """Device bytes K2 reads and writes in a pass: the int8 tiles, bias
-        and flags read once, c and w written once (4 bytes each a chunk).
-        The finish's (n_chains, 2) is left out."""
+        """Device bytes K2 reads and writes in a pass: the tiles' bytes in
+        their format (a byte a base for int8 and codes, half a byte for
+        nibbles, pad rows included), bias and flags read once, c and w
+        written once (4 bytes each a chunk).  The finish's (n_chains, 2) is
+        left out."""
         self._meta(jobs, chain_nblocks)
         tiles = self.pair._pack(jobs).tiles
         return int(tiles.numel() + 4 * 4 * tiles.shape[0])

@@ -8,8 +8,9 @@ of torch.devices; an entry may repeat (["cuda:0"] * 4 on a one-card machine,
                          equal-count shards (mesh.py:63-97), each run through
                          K1 (CPU: its plain version) over genome codes
                          replicated on its device
-    ShardedPairScorer    chunk sums of the port's int8 score tiles, cut into
-                         contiguous row shards (mesh.py:127-147)
+    ShardedPairScorer    chunk sums of the reference's combined-code tiles
+                         (pack_pairs), cut into contiguous row shards
+                         (mesh.py:127-147)
     ShardedChainScorer   (global, local, aliBases) of whole chain sets; the
                          chains are cut into contiguous shards at chain
                          boundaries, each a whole pair scorer with K2 on its
@@ -32,7 +33,8 @@ import numpy as np
 import torch
 
 from ..device import PERF, resolve_device
-from ..ops.pair_rescore import fill_scored, lut8_of, pair_chunk
+from ..ops.pair_combine import tile_row_sums
+from ..ops.pair_rescore import lut8_of
 from ..ops.rescore import TorchChainScorer
 from ..ops.window_rescore import checked_lut, chunk_blocks, chunk_sums
 from .distributed import shard_indices
@@ -132,41 +134,33 @@ class ShardedBlockScorer:
 
 
 class ShardedPairScorer:
-    """Multi-device chunk sums of int8 score tiles, cut into contiguous row
-    shards.  The port has only score tiles (ops/pair_rescore.py), not the
-    reference's combined-code tiles of pack_pairs, so this takes the tiles
-    that `pack` (fill_scored) writes and returns the same chunk scores for
-    the same chunks, in chunk_blocks order.  Tiles are genome-agnostic: no
-    genome is replicated."""
+    """Multi-device chunk sums of combined-code tiles (a byte q * 5 + t a
+    base, pad 24), the tiles of the reference's pack_pairs and of the port's
+    (ops/pair_rescore.py), cut into contiguous row shards.  Each shard is
+    decoded with torch ops on its device (tile_row_sums, the counterpart of
+    the XLA _sharded_pair_scores, mesh.py:107-124).  Tiles are
+    genome-agnostic: no genome is replicated.  The matrix must fit int8 with
+    a zero N row and column, as the reference's pack_lut asserts."""
 
     def __init__(self, lut: np.ndarray, mesh=None):
         self.mesh = _mesh_of(mesh)
-        self.lut8 = lut8_of(lut)
+        self.table = torch.from_numpy(lut8_of(lut))
         self.n_dev = len(self.mesh)
 
-    def pack(self, t_codes: np.ndarray, q_codes: np.ndarray,
-             blocks: np.ndarray):
-        """(tiles int8 (m, chunk), c_block int64[m], m) of one (t, q,
-        strand) group's blocks, chunk = pair_chunk(): the counterpart of
-        pack_pairs."""
-        t_off, q_off, length, c_block = chunk_blocks(blocks, pair_chunk())
-        tiles = np.empty((t_off.shape[0], pair_chunk()), np.int8)
-        fill_scored(t_codes, q_codes, t_off, q_off, length, tiles, self.lut8)
-        return tiles, c_block, tiles.shape[0]
-
-    def chunk_scores(self, tiles: np.ndarray) -> np.ndarray:
-        """(m, chunk) int8 score tiles -> int32[m] row sums; any m (the
-        shards are shard_indices ranges, no padding needed)."""
-        tiles = np.ascontiguousarray(tiles, np.int8)
-        if tiles.ndim != 2:
-            raise ValueError(f"tiles must be 2-D, got shape {tiles.shape}")
+    def chunk_scores(self, c8: np.ndarray) -> np.ndarray:
+        """(m, chunk) uint8 combined-code tiles -> int32[m] chunk scores; any
+        m (the shards are shard_indices ranges, no padding needed)."""
+        c8 = np.ascontiguousarray(c8, np.uint8)
+        if c8.ndim != 2:
+            raise ValueError(f"tiles must be 2-D, got shape {c8.shape}")
         outs = []
         for d, dev in enumerate(self.mesh):
-            rows = shard_indices(tiles.shape[0], self.n_dev, d)
+            rows = shard_indices(c8.shape[0], self.n_dev, d)
             if len(rows):
                 PERF["dispatches"] += 1
-                outs.append(_upload(tiles[rows.start:rows.stop], dev).sum(
-                    dim=1, dtype=torch.int32))
+                outs.append(tile_row_sums(
+                    _upload(c8[rows.start:rows.stop], dev), "code",
+                    self.table))
         if not outs:
             return np.zeros(0, np.int32)
         return np.concatenate([_fetch(o) for o in outs])
@@ -192,8 +186,9 @@ class ShardedChainScorer:
     """Multi-device (global, local, aliBases) of whole chain sets, the
     contract of the reference's ShardedChainScorer (mesh.py:150-186).
 
-    Each mesh entry holds a pair-mode TorchChainScorer (int8 tiles resident
-    on its device, TorchPairChainScorer, K2 on CUDA).  The chains are cut at
+    Each mesh entry holds a pair-mode TorchChainScorer (tiles resident on
+    its device in the format GAT_PAIR_TILES names, TorchPairChainScorer, the
+    format's K2 entry on CUDA).  The chains are cut at
     chain boundaries (chain_cuts, by chunk count); every shard's pass is
     queued before the first fetch, so separate cards overlap, and only each
     shard's (n_chains_shard, 2) int32 comes back.  OverflowError (a chain

@@ -104,3 +104,92 @@ def even_tiles_torch(s, chunk: int):
         out[lo:lo + step] = (q[:, None] + (lane < (part - q * chunk)[:, None])
                              ).to(torch.int8)
     return out
+
+
+# A 5x5 matrix [q, t] with sixteen distinct values (0 among them) and the
+# int8 extremes: 4-bit tiles then use every index, and both sign bits.
+WIDE_LUT = np.zeros((5, 5), np.int64)
+WIDE_LUT[:4, :4] = [[127, -128, 3, -1], [0, 100, -114, 55],
+                    [-31, -125, 91, 7], [-7, 64, -64, 126]]
+
+
+def code_tiles(rng, m: int, chunk: int):
+    """(m, chunk) uint8 combined codes q * 5 + t as alignments give them:
+    t equal to q on about 80% of the bases, an N on either side on 5%, a
+    byte of 25 or more (which scores 0) on 1%, and a third of the rows
+    ending early, padded with 24 (N/N)."""
+    shape = (m, chunk)
+    q = rng.integers(0, 4, shape)
+    t = np.where(rng.random(shape) < 0.8, q, rng.integers(0, 4, shape))
+    n = rng.random(shape)
+    q = np.where(n < 0.03, 4, q)
+    t = np.where((n >= 0.03) & (n < 0.05), 4, t)
+    codes = (q * 5 + t).astype(np.uint8)
+    junk = rng.random(shape) < 0.01
+    codes[junk] = rng.integers(25, 256, int(junk.sum()))
+    length = np.where(rng.random(m) < 0.33, rng.integers(0, chunk + 1, m),
+                      chunk)
+    codes[np.arange(chunk) >= length[:, None]] = 24
+    return codes
+
+
+def code_tiles_torch(m: int, chunk: int, device, seed: int):
+    """code_tiles' mix built on `device` with torch's generator, a block of
+    rows at a time (for cases too large to build on the host); rows are
+    full, stray bytes are 200."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = torch.empty((m, chunk), dtype=torch.uint8, device=device)
+    step = 1 << 18                    # rows built at a time
+    for lo in range(0, m, step):
+        shape = (min(step, m - lo), chunk)
+
+        def rand():
+            return torch.rand(shape, generator=g, device=device)
+
+        def codes():
+            return torch.randint(0, 4, shape, generator=g, device=device,
+                                 dtype=torch.uint8)
+        q = codes()
+        t = torch.where(rand() < 0.8, q, codes())
+        n = rand()
+        q = torch.where(n < 0.03, 4, q)
+        t = torch.where((n >= 0.03) & (n < 0.05), 4, t)
+        c = q * 5 + t
+        c[rand() < 0.01] = 200
+        out[lo:lo + shape[0]] = c
+    return out
+
+
+def _by_table(table: np.ndarray, codes):
+    """table[codes] for numpy codes, or torch codes on any device (a block
+    of rows at a time)."""
+    if isinstance(codes, np.ndarray):
+        return table[codes]
+    import torch
+    t = torch.from_numpy(table).to(codes.device)
+    out = torch.empty(codes.shape, dtype=t.dtype, device=codes.device)
+    step = 1 << 18
+    for lo in range(0, codes.shape[0], step):
+        out[lo:lo + step] = t[codes[lo:lo + step].to(torch.int64)]
+    return out
+
+
+def scored_tiles(codes, lut):
+    """The int8 score tiles of the same bases: lut[q, t] where q and t are
+    both below 4, else 0 (numpy or torch codes)."""
+    table = np.zeros(256, np.int8)
+    c = np.arange(25)
+    live = (c // 5 < 4) & (c % 5 < 4)
+    table[c[live]] = np.asarray(lut)[c[live] // 5, c[live] % 5]
+    return _by_table(table, codes)
+
+
+def nibble_tiles(codes, idx_lut25):
+    """The 4-bit tiles of the same bases: idx_lut25[c] for a code below 25,
+    index 0 (value 0) for any other byte, base 2i in the low nibble of byte i
+    (numpy or torch codes of an even width)."""
+    table = np.zeros(256, np.uint8)
+    table[:25] = idx_lut25
+    idx = _by_table(table, codes)
+    return idx[:, 0::2] | (idx[:, 1::2] << 4)

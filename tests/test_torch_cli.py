@@ -243,6 +243,33 @@ def test_port_cli_pair_mode_matches_goldens(fixtures_dir, golden_dir,
         assert _read(got) == _read(os.path.join(golden_dir, golden))
 
 
+@pytest.mark.parametrize("tiles", ["code", "score4"])
+@pytest.mark.parametrize("tool", ["scoreChain", "chainNetRescore",
+                                  "chainCleaner", "chainCleanerNet"])
+def test_port_cli_pair_mode_formats_match_goldens(fixtures_dir, golden_dir,
+                                                  tmp_path, pair_mode,
+                                                  monkeypatch, tool, tiles):
+    """test_port_cli_pair_mode_matches_goldens under GAT_PAIR_TILES=code and
+    =score4: the goldens byte for byte, the combine reached with the
+    format's tiles."""
+    from genomealignmenttools_tpu_torch.ops import pair_rescore
+    monkeypatch.setenv("GAT_PAIR_TILES", tiles)
+    kinds = []
+    spy = pair_rescore.pair_combine_scan_tiles
+
+    def kind_spy(*args):
+        kinds.append(args[4])
+        return spy(*args)
+    monkeypatch.setattr(pair_rescore, "pair_combine_scan_tiles", kind_spy)
+    argv, outputs = _tools(fixtures_dir, str(tmp_path))[tool]
+    perf_reset()
+    assert port_main(argv + ["-device=cpu"]) == 0
+    assert (len(pair_mode) > 0) == (tool != "scoreChain")
+    assert set(kinds) == ({tiles} if tool != "scoreChain" else set())
+    for got, golden in outputs:
+        assert _read(got) == _read(os.path.join(golden_dir, golden))
+
+
 @pytest.mark.parametrize("tag,flag", THRESHOLDS)
 def test_chain_cleaner_threshold_flags_pair_mode(fixtures_dir, golden_dir,
                                                  tmp_path, pair_mode, tag,

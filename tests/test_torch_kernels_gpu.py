@@ -17,8 +17,10 @@ import torch
 from band_cases import (N_INSTANTIATION_CASES, N_KERNEL_CASES,
                         instantiation_cases, kernel_cases, outcome,
                         raw_inputs)
-from combine_cases import (combine_case, edge_chains, even_tiles_torch,
-                           random_chains, score_tiles)
+from combine_cases import (WIDE_LUT, code_tiles, code_tiles_torch,
+                           combine_case, edge_chains, even_tiles_torch,
+                           nibble_tiles, random_chains, score_tiles,
+                           scored_tiles)
 from genomealignmenttools_tpu_torch.device import LAUNCHES
 from genomealignmenttools_tpu_torch.device.genome import Genome, revcomp_codes
 from genomealignmenttools_tpu_torch.formats.chain import read_chains
@@ -29,8 +31,8 @@ from genomealignmenttools_tpu_torch.ops import band_batch as bb
 from genomealignmenttools_tpu_torch.ops.band_ext import band_ext
 from genomealignmenttools_tpu_torch.ops import pair_combine as pc
 from genomealignmenttools_tpu_torch.ops import window_rescore as wr
-from genomealignmenttools_tpu_torch.ops.pair_rescore import \
-    pair_chain_scores_plain
+from genomealignmenttools_tpu_torch.ops.pair_rescore import (
+    pack_pairs, pack_vals16, pair_chain_scores_plain, vals16_of)
 from genomealignmenttools_tpu_torch.ops.rescore import TorchChainScorer
 from genomealignmenttools_tpu_torch.parallel.dryrun import dryrun_multidevice
 from genomealignmenttools_tpu_torch.parallel.mesh import (
@@ -249,6 +251,149 @@ def test_pair_combine_tiles_kernel_many_tiles(cuda_device):
     _tiles_against_plain(tiles, *card, tw)
 
 
+IDX_LUT25, VALS_PACKED = pack_vals16(WIDE_LUT)
+TABLES = {"code": torch.from_numpy(WIDE_LUT.reshape(25).astype(np.int8)),
+          "score4": torch.from_numpy(vals16_of(VALS_PACKED))}
+
+
+def _format_against_plain(kind, tiles, s8, bias, flags, start_idx, end_idx,
+                          tweak):
+    """The format's K2 entry twice (the same bits both times), against its
+    plain version on the card, against K2's int8 entry on the int8 tiles of
+    the same bases, and, finished, against the staged int64 combine."""
+    key = pc.LAUNCH_KEY[kind]
+    before = LAUNCHES[key]
+    c, w = pc.pair_combine_scan_tiles(tiles, bias, flags, tweak, kind,
+                                      TABLES[kind])
+    again = pc.pair_combine_scan_tiles(tiles, bias, flags, tweak, kind,
+                                       TABLES[kind])
+    torch.cuda.synchronize()
+    assert LAUNCHES[key] == before + 2
+    assert torch.equal(c, again[0]) and torch.equal(w, again[1])
+    assert c.dtype == w.dtype == torch.int32 and c.device == tiles.device
+    plain = pc.pair_combine_scan_tiles_plain(tiles, bias, flags, tweak, kind,
+                                             TABLES[kind])
+    assert torch.equal(c, plain[0]) and torch.equal(w, plain[1])
+    int8 = pc.pair_combine_scan_tiles(s8, bias, flags, tweak)
+    assert torch.equal(c, int8[0]) and torch.equal(w, int8[1])
+    s = s8.sum(dim=1, dtype=torch.int32)
+    s_tw = s if tweak is None else (s + tweak).to(torch.int32)
+    staged = pair_chain_scores_plain(s_tw, bias, flags, start_idx, end_idx)
+    fin = pc.pair_combine_finish(c, w, end_idx)
+    assert torch.equal(fin.to(torch.int64), staged)
+    return c, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tweak", [None, 7])
+@pytest.mark.parametrize("chunk", [128, 130])
+@pytest.mark.parametrize("kind", ["code", "score4"])
+@pytest.mark.parametrize("name", ["edge", "ragged", "random"])
+def test_pair_combine_format_kernel_matches_plain(cuda_device, name, kind,
+                                                  chunk, tweak):
+    """Combined-code rows of 128 bytes (16-byte loads) and 130 (a row a
+    thread), 4-bit rows of 64 bytes (16-byte loads) and 65 (odd: byte
+    loads), with and without a tweak."""
+    _, bias, flags, start_idx, end_idx, m = _combine_inputs(name)
+    codes = code_tiles(np.random.default_rng(chunk), bias.shape[0], chunk)
+    codes[m:] = 24
+    tiles = codes if kind == "code" else nibble_tiles(codes, IDX_LUT25)
+    card = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+            for a in (tiles, scored_tiles(codes, WIDE_LUT), bias, flags,
+                      start_idx, end_idx)]
+    tw = None if tweak is None else torch.tensor(tweak, dtype=torch.int32,
+                                                 device=cuda_device)
+    c, w = _format_against_plain(kind, *card, tw)
+    host = pc.pair_combine_scan_tiles(
+        *[torch.from_numpy(np.ascontiguousarray(a))
+          for a in (tiles, bias, flags)],
+        None if tw is None else tw.cpu(), kind, TABLES[kind])
+    assert torch.equal(c.cpu(), host[0]) and torch.equal(w.cpu(), host[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["code", "score4"])
+def test_pair_combine_format_kernel_many_tiles(cuda_device, kind):
+    """200,000 random chains, rows built on the card: the look-back crosses
+    many tiles and blocks finish in every order."""
+    rng = np.random.default_rng(31)
+    _, bias, flags, start_idx, end_idx, m = combine_case(
+        rng, *random_chains(rng, 200_000))
+    assert m // pc.TILE > 10_000
+    codes = code_tiles_torch(m, 128, cuda_device, seed=5)
+    tiles = codes if kind == "code" else nibble_tiles(codes, IDX_LUT25)
+    card = [torch.from_numpy(a).to(cuda_device)
+            for a in (bias, flags, start_idx, end_idx)]
+    tw = torch.tensor(1, dtype=torch.int32, device=cuda_device)
+    _format_against_plain(kind, tiles, scored_tiles(codes, WIDE_LUT), *card,
+                          tw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["code", "score4"])
+def test_pair_combine_format_refusals_on_cuda(cuda_device, kind):
+    """The wrapper refuses on CUDA tensors before any launch (a table on the
+    card, misaligned tiles, a width K2 does not take); the C entry itself
+    returns cudaErrorInvalidValue for a width or an alignment it does not
+    take, and nothing is counted."""
+    key = pc.LAUNCH_KEY[kind]
+    width = 64 if kind == "score4" else 128
+    z = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    tiles = torch.zeros((8, width), dtype=torch.uint8, device=cuda_device)
+    before = LAUNCHES[key]
+    with pytest.raises(TypeError):
+        pc.pair_combine_scan_tiles(tiles, z, z, None, kind,
+                                   TABLES[kind].to(cuda_device))
+    flat = torch.zeros(8 * width + 16, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        pc.pair_combine_scan_tiles(flat[1:1 + 8 * width].view(8, width), z, z,
+                                   None, kind, TABLES[kind])
+    bad = 131 if kind == "score4" else 129
+    wide = torch.zeros((8, bad), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        pc.pair_combine_scan_tiles(wide, z, z, None, kind, TABLES[kind])
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pc._launch_tiles(wide, z, z, None, kind, TABLES[kind])
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pc._launch_tiles(flat[1:1 + 8 * width].view(8, width), z, z, None,
+                         kind, TABLES[kind])
+    assert LAUNCHES[key] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiles", ["code", "score4"])
+def test_pair_pass_formats_cuda(cuda_device, monkeypatch, tiles):
+    """TorchPairChainScorer under GAT_PAIR_TILES=code and =score4 on the
+    card: the host-native scores, one launch of the format's entry a pass,
+    none of the int8 entry."""
+    from genomealignmenttools_tpu_torch.ops import pair_rescore as pr
+    from genomealignmenttools_tpu_torch.ops.rescore import torch_scorer_factory
+    monkeypatch.setenv("GAT_PAIR_TILES", tiles)
+    scheme = score_scheme_default()
+    gc = gap_calc_from_file("loose")
+    t_genome = Genome(os.path.join(FIXTURES, "target.2bit"))
+    q_genome = Genome(os.path.join(FIXTURES, "query.2bit"))
+    chains = read_chains(os.path.join(FIXTURES, "synthetic.chain"))
+    scorer = TorchChainScorer(scheme, gc, t_genome, q_genome,
+                              device=cuda_device, mode="pair")
+    assert scorer._dev.kind == tiles
+    jobs, order = scorer._grouped(chains)
+    nblocks = [chains[i].n_blocks for i in order]
+    pcs = pr.TorchPairChainScorer(scorer._dev, gc)
+    host = torch_scorer_factory(mode="hostnative")(scheme, gc, t_genome,
+                                                   q_genome)
+    want = [host.global_and_local(chains[i]) for i in order]
+    key = pc.LAUNCH_KEY[tiles]
+    before, int8 = LAUNCHES[key], LAUNCHES["pair_combine"]
+    assert pcs.score(jobs, nblocks) == want
+    chained = pcs.score_chained(jobs, nblocks, 3)
+    assert LAUNCHES[key] == before + 4 and LAUNCHES["pair_combine"] == int8
+    assert chained.tolist() == [[g, loc] for (g, loc, _) in want]
+    # the torch row sums of the format (chunk_sums), summed per block
+    assert np.array_equal(scorer._dev.block_scores_multi(jobs),
+                          host._dev.block_scores_multi(jobs))
+
+
 @pytest.mark.gpu
 def test_pair_pass_never_takes_the_torch_row_sums(cuda_device, monkeypatch):
     """TorchPairChainScorer's pass on the card reads the tiles in K2 itself:
@@ -382,7 +527,7 @@ def test_sharded_block_and_pair_scorers_cuda_match_single_device(
     cpu = ShardedBlockScorer(lut, ["cpu"]).block_scores(*args)
     assert np.array_equal(got, one) and np.array_equal(got, cpu)
     pair = ShardedPairScorer(lut, [cuda_device] * 2)
-    tiles, _, _ = pair.pack(*args)
+    tiles, _, _ = pack_pairs(*args)
     assert np.array_equal(pair.chunk_scores(tiles),
                           ShardedPairScorer(lut, ["cpu"]).chunk_scores(tiles))
 
@@ -407,6 +552,8 @@ def test_sharded_chain_scorer_cuda_matches_single_device(cuda_device,
 
 @pytest.mark.gpu
 def test_dryrun_multidevice_cuda(cuda_device):
+    """The dry run launches K1, K2 (int8 tiles) and K3."""
     before = dict(LAUNCHES)
     dryrun_multidevice([cuda_device] * 2)
-    assert all(LAUNCHES[k] > before[k] for k in LAUNCHES)
+    assert all(LAUNCHES[k] > before[k]
+               for k in ("rescore_chunks", "pair_combine", "band_ext"))

@@ -8,25 +8,31 @@ through the JAX `pair_combine_scan(..., interpret=True)` +
 sizes 1, 7, 64, 2048 (the CUDA kernel's) and 32768 (the Pallas kernel's),
 and through `pair_chain_scores_plain`; and, as int8 score tiles whose rows
 sum to the same s (combine_cases.score_tiles), through
-`pair_combine_scan_tiles_plain` at widths 128, 130 and 258.  Integer math:
-every comparison is exact (tolerance 0).  The tile path against the JAX
-package's `_fused_pass` is in tests/test_torch_pair_rescore.py; the CUDA
-kernel itself is held against the plain versions on a card, in
-tests/test_torch_kernels_gpu.py.
+`pair_combine_scan_tiles_plain` at widths 128, 130 and 258.  The two other
+row sources, combined-code and 4-bit tiles of the same bases
+(combine_cases.code_tiles, nibble_tiles), go through the port's plain
+version and the JAX package's one-dispatch pass (`_fused_pass` with
+pack_lut's packed LUT, and with `scored4=True` and vals_packed;
+`_fused_pass_chained` for the tweak), the Pallas combine in interpret mode,
+at chunks 2, 6, 128, 130 and 258.  Integer math: every comparison is exact
+(tolerance 0).  The int8 tile path against the JAX package's `_fused_pass`
+is in tests/test_torch_pair_rescore.py; the CUDA kernel itself is held
+against the plain versions on a card, in tests/test_torch_kernels_gpu.py.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from combine_cases import (combine_case, edge_chains, random_chains,
-                           score_tiles)
+from combine_cases import (WIDE_LUT, code_tiles, combine_case, edge_chains,
+                           nibble_tiles, random_chains, score_tiles,
+                           scored_tiles)
 from genomealignmenttools_tpu.ops import pallas_combine as jax_combine
 from genomealignmenttools_tpu_torch import _build
 from genomealignmenttools_tpu_torch.device import PERF
 from genomealignmenttools_tpu_torch.ops import pair_combine as pc
-from genomealignmenttools_tpu_torch.ops.pair_rescore import \
-    pair_chain_scores_plain
+from genomealignmenttools_tpu_torch.ops.pair_rescore import (
+    pack_vals16, pair_chain_scores_plain, vals16_of)
 
 CASES = {
     "random-7": (0, 7),
@@ -300,3 +306,197 @@ def test_tiles_wrapper_refuses_what_the_kernel_does_not_take(change, exc):
     change(a)
     with pytest.raises(exc):
         pc.pair_combine_scan_tiles(**a)
+
+
+FORMAT_CHUNKS = [2, 6, 128, 130, 258]
+IDX_LUT25, VALS_PACKED = pack_vals16(WIDE_LUT)
+TABLES = {"code": torch.from_numpy(WIDE_LUT[:5, :5].reshape(25)
+                                   .astype(np.int8)),
+          "score4": torch.from_numpy(vals16_of(VALS_PACKED))}
+
+
+def _format_case(name, chunk, kind):
+    """A combine case's bias and flags with tiles of `kind` for as many rows
+    (code_tiles' bases, seeded by the chunk; pad rows past m as the packer
+    writes them), and the int8 score tiles of the same bases."""
+    s, bias, flags, _, end_idx, m = _case(name)
+    codes = code_tiles(np.random.default_rng(chunk), s.shape[0], chunk)
+    codes[m:] = 24
+    tiles = codes if kind == "code" else nibble_tiles(codes, IDX_LUT25)
+    return tiles, scored_tiles(codes, WIDE_LUT), bias, flags, end_idx
+
+
+def _jax_format_pass(kind, tiles, bias, flags, end_idx, feedback=None):
+    import jax.numpy as jnp
+    from genomealignmenttools_tpu.ops import pair_rescore as jax_pair
+    from genomealignmenttools_tpu.ops.pallas_rescore import pack_lut
+    table = pack_lut(WIDE_LUT) if kind == "code" else VALS_PACKED
+    args = [jnp.asarray(a) for a in (tiles, table, bias, flags, end_idx)]
+    if feedback is None:
+        out = jax_pair._fused_pass(*args, interpret=True,
+                                   scored4=kind == "score4")
+    else:
+        out = jax_pair._fused_pass_chained(*args, jnp.asarray(feedback),
+                                           interpret=True,
+                                           scored4=kind == "score4")
+    return np.asarray(out)
+
+
+def _port_format_pass(kind, tiles, bias, flags, end_idx, tweak=None):
+    c, w = pc.pair_combine_scan_tiles(_t(tiles), _t(bias), _t(flags), tweak,
+                                      kind, TABLES[kind])
+    return pc.pair_combine_finish(c, w, _t(end_idx)).numpy()
+
+
+def test_vals16_of_unpacks_pack_vals16():
+    from genomealignmenttools_tpu.ops import pair_rescore as jax_pair
+    idx, packed = jax_pair.pack_vals16(WIDE_LUT)
+    assert np.array_equal(idx, IDX_LUT25)
+    assert np.array_equal(packed, VALS_PACKED)
+    vals = vals16_of(packed)
+    assert vals.dtype == np.int8 and vals[0] == 0
+    assert sorted(vals.tolist()) == sorted(
+        set(WIDE_LUT[:5, :5].reshape(-1).tolist()))
+    assert np.array_equal(vals[idx].reshape(5, 5), WIDE_LUT[:5, :5])
+
+
+@pytest.mark.parametrize("kind", ["code", "score4"])
+@pytest.mark.parametrize("chunk", FORMAT_CHUNKS)
+@pytest.mark.parametrize("name", ["random-200", "edge", "multi-tile-chain"])
+def test_format_plain_matches_jax_fused_pass(name, chunk, kind):
+    """Combined-code and 4-bit tiles through the plain version give the JAX
+    package's pass over the same tiles, and the int8 tiles' pass over the
+    same bases."""
+    tiles, s8, bias, flags, end_idx = _format_case(name, chunk, kind)
+    got = _port_format_pass(kind, tiles, bias, flags, end_idx)
+    assert got.dtype == np.int32
+    assert np.array_equal(got, _jax_format_pass(kind, tiles, bias, flags,
+                                                end_idx))
+    c, w = pc.pair_combine_scan_tiles(_t(s8), _t(bias), _t(flags))
+    assert np.array_equal(got, pc.pair_combine_finish(c, w, _t(end_idx))
+                          .numpy())
+
+
+@pytest.mark.parametrize("kind", ["code", "score4"])
+@pytest.mark.parametrize("chunk", [6, 128, 130])
+def test_format_plain_tweak_matches_jax_fused_pass_chained(chunk, kind):
+    """The tweak: the reference adds 1 to every row sum when its feedback
+    equals INT32_MIN; the port adds the tweak it is given."""
+    tiles, _, bias, flags, end_idx = _format_case("random-200", chunk, kind)
+    for fb, tweak in (([-2 ** 31, 0], 1), ([5, 0], 0)):
+        want = _jax_format_pass(kind, tiles, bias, flags, end_idx,
+                                np.array(fb, np.int32))
+        got = _port_format_pass(kind, tiles, bias, flags, end_idx,
+                                torch.tensor(tweak, dtype=torch.int32))
+        assert np.array_equal(got, want)
+    assert not np.array_equal(
+        _port_format_pass(kind, tiles, bias, flags, end_idx,
+                          torch.tensor(1, dtype=torch.int32)),
+        _port_format_pass(kind, tiles, bias, flags, end_idx))
+
+
+def test_code_rows_score_n_and_stray_bytes_zero():
+    """A code byte scores lut[q, t] only where q and t are both below 4:
+    every byte value, one a row."""
+    lut = np.arange(25, dtype=np.int64).reshape(5, 5) - 12
+    tiles = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    tiles = torch.stack([tiles, torch.full_like(tiles, 24)], 1).contiguous()
+    got = pc.tile_row_sums(tiles, "code", torch.from_numpy(
+        lut.reshape(25).astype(np.int8)))
+    want = [int(lut[c // 5, c % 5]) if c < 25 and c // 5 < 4 and c % 5 < 4
+            else 0 for c in range(256)]
+    assert got.tolist() == want
+
+
+def test_score4_rows_decode_both_nibbles():
+    """A nibble byte scores vals[b & 15] + vals[b >> 4]: every byte value,
+    alone in a row of one byte (odd width) and twice in a row of two."""
+    vals = TABLES["score4"]
+    b = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    want = [int(vals[x & 15]) + int(vals[x >> 4]) for x in range(256)]
+    assert pc.tile_row_sums(b[:, None].contiguous(), "score4",
+                            vals).tolist() == want
+    two = torch.stack([b, b], 1).contiguous()
+    assert pc.tile_row_sums(two, "score4", vals).tolist() == [
+        2 * x for x in want]
+
+
+def _format_args(kind, width=None):
+    z = torch.zeros(8, dtype=torch.int32)
+    width = width or (64 if kind == "score4" else 128)
+    pad = 24 if kind == "code" else 0    # N/N, and nibble 0: score 0
+    return {"tiles": torch.full((8, width), pad, dtype=torch.uint8),
+            "bias": z.clone(), "flags": z.clone(), "tweak": None,
+            "kind": kind, "table": TABLES[kind].clone()}
+
+
+def _misaligned_u8(width):
+    flat = torch.zeros(8 * width + 16, dtype=torch.uint8)
+    off = (-flat.data_ptr()) % 16 + 2
+    return flat[off:off + 8 * width].view(8, width)
+
+
+@pytest.mark.parametrize("kind", ["code", "score4"])
+@pytest.mark.parametrize("change,exc", [
+    (lambda a: a.update(tiles=a["tiles"].to(torch.int8)), TypeError),
+    (lambda a: a.update(tiles=a["tiles"].reshape(-1)), ValueError),
+    (lambda a: a.update(tiles=a["tiles"][:7]), ValueError),
+    (lambda a: a.update(tiles=_misaligned_u8(a["tiles"].shape[1])),
+     ValueError),
+    (lambda a: a.update(tiles=a["tiles"][:, :0]), ValueError),
+    (lambda a: a.update(table=None), TypeError),
+    (lambda a: a.update(table=a["table"].to(torch.int32)), TypeError),
+    (lambda a: a.update(table=a["table"][:-1]), TypeError),
+    (lambda a: a.update(table=a["table"].to("meta")), TypeError),
+    (lambda a: a.update(kind="int8"), ValueError),
+    (lambda a: a.update(tweak=torch.ones(2, dtype=torch.int32)), TypeError),
+    (lambda a: a.update(tiles=a["tiles"].to("meta")), ValueError),
+], ids=["tiles-int8", "1d", "rows-differ", "misaligned", "width-0",
+        "no-table", "table-dtype", "table-length", "table-device",
+        "unknown-kind", "tweak-two-values", "tiles-device"])
+def test_format_wrapper_refuses_what_the_kernel_does_not_take(kind, change,
+                                                              exc):
+    a = _format_args(kind)
+    change(a)
+    with pytest.raises(exc):
+        pc.pair_combine_scan_tiles(**a)
+
+
+@pytest.mark.parametrize("kind,width,ok", [
+    ("code", 2, True), ("code", 258, True), ("code", 129, False),
+    ("code", 260, False), ("score4", 1, True), ("score4", 65, True),
+    ("score4", 129, True), ("score4", 130, False)])
+def test_format_wrapper_widths(kind, width, ok):
+    """Code rows take K2's even widths 2..258; 4-bit rows any width from 1
+    to 129 bytes (chunk // 2 under GAT_PAIR_CHUNK), odd ones included."""
+    a = _format_args(kind, width)
+    if ok:
+        c, w = pc.pair_combine_scan_tiles(**a)
+        assert c.tolist() == [0] * 8
+    else:
+        with pytest.raises(ValueError, match="width"):
+            pc.pair_combine_scan_tiles(**a)
+
+
+def test_score8_takes_no_table():
+    a = _tile_args()
+    with pytest.raises(ValueError, match="no table"):
+        pc.pair_combine_scan_tiles(**a, table=TABLES["code"])
+
+
+@pytest.mark.parametrize("kind", ["code", "score4"])
+def test_format_wrapper_runs_plain_version_on_cpu(kind, monkeypatch):
+    """On CPU tensors the format's wrapper never reaches the CUDA build; it
+    counts one dispatch and no launch under any key."""
+    from genomealignmenttools_tpu_torch.device import LAUNCHES
+
+    def no_build():
+        raise AssertionError("the CUDA library was asked for on the CPU")
+    monkeypatch.setattr(_build, "load_library", no_build)
+    tiles, s8, bias, flags, end_idx = _format_case("random-64", 128, kind)
+    before, launches = PERF["dispatches"], dict(LAUNCHES)
+    got = _port_format_pass(kind, tiles, bias, flags, end_idx)
+    assert PERF["dispatches"] == before + 1 and LAUNCHES == launches
+    c, w = pc.pair_combine_scan_tiles_plain(_t(s8), _t(bias), _t(flags))
+    assert np.array_equal(got, pc.pair_combine_finish(c, w, _t(end_idx))
+                          .numpy())

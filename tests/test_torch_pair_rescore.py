@@ -382,3 +382,234 @@ def test_chain_scorer_pass_is_one_tile_combine(setup, chain_sets,
     assert chained.tolist() == [[g, loc] for (g, loc, _) in want]
     tiles = port.pair._pack(jobs).tiles
     assert calls[0] == tiles.shape and tiles.shape[1] == port_pair.CHUNK
+
+
+# --- the other tile formats: GAT_PAIR_TILES=code and =score4 --------------
+
+FORMATS = ["code", "score4"]
+
+
+@pytest.mark.parametrize("tiles", FORMATS)
+@pytest.mark.parametrize("which", ["synthetic", "random"])
+def test_formats_match_jax_pair_and_host(setup, chain_sets, monkeypatch,
+                                         tiles, which):
+    """Under GAT_PAIR_TILES=code and =score4 the port's block sums, chunk
+    sums, score and score_chained(..., 3) equal the JAX PairBlockScorer's
+    and PairChainScorer's under the same setting and the host ChainScorer's
+    (test_device_rescore.py::test_score_tiles_vs_code_tiles_identical)."""
+    monkeypatch.setenv("GAT_PAIR_TILES", tiles)
+    scheme, gc, t_genome, q_genome = setup
+    chains = chain_sets[which]
+    jobs, nblocks, order = _jobs(setup, chains)
+    lut = np.asarray(scheme.lut)
+    port = port_pair.TorchPairBlockScorer(lut, t_genome, q_genome, CPU)
+    ref = jax_pair.PairBlockScorer(lut, t_genome, q_genome)
+    assert port.kind == tiles
+    assert ref.score4_tiles == (tiles == "score4")
+    assert ref.score_tiles == (tiles == "score4")
+    got = port.block_scores_multi(jobs)
+    assert np.array_equal(got, ref.block_scores_multi(jobs))
+    host = ChainScorer(*setup)
+    assert np.array_equal(got, np.concatenate(
+        [host.score_arrays(chains[i])[0] for i in order]))
+    cs, c_block, n_blocks = port.chunk_scores_multi(jobs)
+    cs_j, c_block_j, n_blocks_j = ref.chunk_scores_multi(jobs)
+    assert cs.dtype == np.int32 and np.array_equal(cs, cs_j)
+    assert np.array_equal(c_block, c_block_j) and n_blocks == n_blocks_j
+    pcs = port_pair.TorchPairChainScorer(port, gc)
+    want = [host.global_and_local(chains[i]) for i in order]
+    assert pcs.score(jobs, nblocks) == want
+    assert jax_pair.PairChainScorer(ref, gc).score(jobs, nblocks) == want
+    chained = pcs.score_chained(jobs, nblocks, 3)
+    assert np.array_equal(chained.astype(np.int64), jax_pair.PairChainScorer(
+        ref, gc).score_chained(jobs, nblocks, 3))
+    assert chained.tolist() == [[g, loc] for (g, loc, _) in want]
+    pack = port._pack(jobs)
+    assert pack.kind == tiles
+    width = port_pair.CHUNK // 2 if tiles == "score4" else port_pair.CHUNK
+    assert pack.tiles.shape[1] == width and pack.tiles.dtype == torch.uint8
+    assert (pack.tiles[pack.m:] == (24 if tiles == "code" else 0)).all()
+    assert pcs.resident_hbm_bytes(jobs, nblocks) == \
+        pack.tiles.shape[0] * (width + 16)
+
+
+@pytest.mark.parametrize("tiles", FORMATS)
+def test_format_pass_is_one_call_of_the_format(setup, chain_sets,
+                                               monkeypatch, combine_calls,
+                                               tiles):
+    """TorchChainScorer in pair mode with the device combine calls the
+    combine wrapper with the format's tiles, kind and table, one call a
+    pass."""
+    monkeypatch.setenv("GAT_PAIR_TILES", tiles)
+    monkeypatch.setenv("GAT_COMBINE", "device")
+    kinds = []
+    real = port_pair.pair_combine_scan_tiles
+
+    def spy(*args):
+        kinds.append((args[0].dtype, args[0].shape[1], args[4]))
+        return real(*args)
+    monkeypatch.setattr(port_pair, "pair_combine_scan_tiles", spy)
+    chains = chain_sets["random"]
+    port = TorchChainScorer(*setup, device=CPU, mode="pair")
+    host = ChainScorer(*setup)
+    assert port.score_chains(chains) == [host.global_and_local(c)
+                                         for c in chains]
+    width = port_pair.CHUNK // 2 if tiles == "score4" else port_pair.CHUNK
+    assert kinds == [(torch.uint8, width, tiles)]
+
+
+@pytest.mark.parametrize("chunk", ["2", "130", "258"])
+@pytest.mark.parametrize("tiles", FORMATS)
+def test_formats_at_other_pair_chunks(setup, chain_sets, monkeypatch, tiles,
+                                      chunk):
+    """Any GAT_PAIR_CHUNK: 4-bit rows of 1, 65 (odd) and 129 bytes."""
+    monkeypatch.setenv("GAT_PAIR_TILES", tiles)
+    monkeypatch.setenv("GAT_PAIR_CHUNK", chunk)
+    monkeypatch.setenv("GAT_COMBINE", "device")
+    port = TorchChainScorer(*setup, device=CPU, mode="pair")
+    chains = chain_sets["random"]
+    host = ChainScorer(*setup)
+    assert port.score_chains(chains) == [host.global_and_local(c)
+                                         for c in chains]
+    jobs, _ = port._grouped(chains)
+    width = int(chunk) // 2 if tiles == "score4" else int(chunk)
+    assert port._dev._pack(jobs).tiles.shape[1] == width
+
+
+def test_more_than_16_values_gives_int8_tiles_in_both(setup, monkeypatch):
+    """GAT_PAIR_TILES=score4 with a matrix of 17 distinct values (with 0):
+    int8 score tiles in the port, as in the reference, same scores."""
+    scheme, gc, t_genome, q_genome = setup
+    lut = np.zeros((5, 5), np.int64)
+    lut[:4, :4] = (np.arange(16) - 8).reshape(4, 4) * 7 + 1
+    assert port_pair.pack_vals16(lut) is None
+    monkeypatch.setenv("GAT_PAIR_TILES", "score4")
+    port = port_pair.TorchPairBlockScorer(lut, t_genome, q_genome, CPU)
+    ref = jax_pair.PairBlockScorer(lut, t_genome, q_genome)
+    assert port.kind == "score8" and port.table is None
+    assert ref.score_tiles and not ref.score4_tiles
+    blocks = np.array([[100, 400, 200, 500], [600, 611, 700, 711]], np.int64)
+    assert np.array_equal(port.block_scores("chrA", "chrQ1", "+", blocks),
+                          ref.block_scores("chrA", "chrQ1", "+", blocks))
+
+
+@pytest.mark.parametrize("tiles", [None, "code", "score4"])
+@pytest.mark.parametrize("where,value", [((0, 0), 200), ((1, 2), -129),
+                                         ((4, 1), 5), ((2, 4), -3)],
+                         ids=["above-int8", "below-int8", "n-row", "n-col"])
+def test_matrix_refused_in_every_format(setup, monkeypatch, tiles, where,
+                                        value):
+    """Outside int8, or a nonzero N row or column: the reference's pack_lut
+    asserts (pallas_rescore.py:175-178) whatever GAT_PAIR_TILES says; the
+    port raises ValueError."""
+    scheme, _, t_genome, q_genome = setup
+    if tiles is None:
+        monkeypatch.delenv("GAT_PAIR_TILES", raising=False)
+    else:
+        monkeypatch.setenv("GAT_PAIR_TILES", tiles)
+    lut = np.asarray(scheme.lut).astype(np.int64)
+    lut[where] = value
+    with pytest.raises(ValueError, match="pair mode needs"):
+        port_pair.TorchPairBlockScorer(lut, t_genome, q_genome, CPU)
+    with pytest.raises(AssertionError):
+        jax_pair.PairBlockScorer(lut, t_genome, q_genome)
+
+
+@pytest.mark.parametrize("value", ["int8", "", "Code", "score8", "dot"])
+def test_unknown_pair_tiles_raises(setup, monkeypatch, value):
+    monkeypatch.setenv("GAT_PAIR_TILES", value)
+    with pytest.raises(ValueError, match="GAT_PAIR_TILES"):
+        TorchChainScorer(*setup, device=CPU, mode="pair")
+    # the host-native oracle packs no tiles and does not read it
+    monkeypatch.setenv("GAT_RESCORE", "hostnative")
+    assert TorchChainScorer(*setup, device=None)._dev.host_native
+
+
+def test_bucket_rows_matches_reference():
+    ms = [0, 1, 1023, 1024, 1025, 1280, 1281, 1536, 1537, 1792, 1793, 2047,
+          2048, 2049, 4_374_528, 10 ** 7 + 1]
+    assert [port_pair.bucket_rows(m) for m in ms] == \
+        [jax_pair.bucket_rows(m) for m in ms]
+    assert port_pair.bucket_rows(3000, 256) == jax_pair.bucket_rows(3000, 256)
+
+
+def test_pack_vals16_matches_reference(setup):
+    from combine_cases import WIDE_LUT
+    scheme = setup[0]
+    over = np.zeros((5, 5), np.int64)
+    over[:4, :4] = np.arange(1, 17).reshape(4, 4)       # 17 values with 0
+    wide = np.asarray(WIDE_LUT).copy()
+    wide[3, 3] = 300                                    # outside int8
+    for lut in (np.asarray(scheme.lut), WIDE_LUT, over, wide):
+        got, want = port_pair.pack_vals16(lut), jax_pair.pack_vals16(lut)
+        assert (got is None) == (want is None)
+        if got is not None:
+            assert got[0].dtype == want[0].dtype == np.uint8
+            assert got[1].dtype == want[1].dtype == np.int32
+            assert np.array_equal(got[0], want[0])
+            assert np.array_equal(got[1], want[1])
+    assert port_pair.pack_vals16(over) is None
+
+
+@pytest.mark.parametrize("strand", ["+", "-"])
+def test_pack_pairs_matches_reference(setup, chain_sets, strand):
+    """pack_pairs: the reference's combined tiles byte for byte, rows
+    bucketed, pad 24, the same chunk -> block map."""
+    _, _, t_genome, q_genome = setup
+    chains = [c for c in chain_sets["synthetic"] if c.q_strand == strand
+              and c.t_name == "chrA" and c.q_name == "chrQ1"]
+    blocks = np.concatenate([c.blocks for c in chains]).astype(np.int64)
+    t_codes = t_genome.codes("chrA", "+")
+    q_codes = q_genome.codes("chrQ1", strand)
+    c8, c_block, m = port_pair.pack_pairs(t_codes, q_codes, blocks)
+    c8_j, c_block_j, m_j = jax_pair.pack_pairs(t_codes, q_codes, blocks)
+    assert m == m_j and c8.dtype == np.uint8
+    assert c8.shape == c8_j.shape == (jax_pair.bucket_rows(m), 128)
+    assert np.array_equal(c8, c8_j) and np.array_equal(c_block, c_block_j)
+    assert (c8[m:] == 24).all()
+
+
+def _random_chunks(seed, chunk, k=3000):
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, 5, 50_000).astype(np.uint8)
+    q = rng.integers(0, 5, 40_000).astype(np.uint8)
+    length = rng.integers(0, chunk + 1, k).astype(np.int64)
+    length[:3] = [0, 1, chunk]
+    t_off = rng.integers(0, t.shape[0] - chunk, k).astype(np.int64)
+    q_off = rng.integers(0, q.shape[0] - chunk, k).astype(np.int64)
+    t_off[2], q_off[2] = t.shape[0] - chunk, q.shape[0] - chunk
+    return t, q, t_off, q_off, length
+
+
+@pytest.mark.parametrize("native", [True, False])
+@pytest.mark.parametrize("chunk", [2, 130])
+def test_fill_formats_match_reference(setup, monkeypatch, native, chunk):
+    """fill_combined and fill_scored4, through the native packers and
+    through numpy (GAT_NATIVE=0), against the reference's _fill_combined and
+    _fill_scored4; both refuse a chunk outside its genome."""
+    import genomealignmenttools_tpu_torch.native as nat
+    if not native:
+        monkeypatch.setenv("GAT_NATIVE", "0")
+        monkeypatch.setattr(nat, "_tried", False)
+        monkeypatch.setattr(nat, "_lib", None)
+    assert (nat.get_lib() is not None) == native
+    t, q, t_off, q_off, length = _random_chunks(chunk, chunk)
+    k = t_off.shape[0]
+    idx_lut25, _ = port_pair.pack_vals16(np.asarray(setup[0].lut))
+    got = np.empty((k, chunk), np.uint8)
+    port_pair.fill_combined(t, q, t_off, q_off, length, got)
+    want = np.empty_like(got)
+    jax_pair._fill_combined(t, q, t_off, q_off, length, want, k, chunk)
+    assert np.array_equal(got, want)
+    got4 = np.empty((k, chunk // 2), np.uint8)
+    port_pair.fill_scored4(t, q, t_off, q_off, length, got4, idx_lut25)
+    want4 = np.empty_like(got4)
+    jax_pair._fill_scored4(t, q, t_off, q_off, length, want4, k, chunk,
+                           idx_lut25)
+    assert np.array_equal(got4, want4)
+    length[5] = chunk + 1
+    with pytest.raises(IndexError):
+        port_pair.fill_combined(t, q, t_off, q_off, length, got)
+    length[5], length[6], t_off[6] = 1, 1, t.shape[0]
+    with pytest.raises(IndexError):
+        port_pair.fill_scored4(t, q, t_off, q_off, length, got4, idx_lut25)

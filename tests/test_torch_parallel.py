@@ -68,9 +68,12 @@ def test_sharded_block_scorer_matches_jax_and_host(fixtures_dir, n_dev):
 
 @pytest.mark.parametrize("n_dev", N_DEV)
 def test_sharded_pair_scorer_matches_jax_and_host(fixtures_dir, n_dev):
-    """Same chunks, same chunk scores: the port's score tiles against the
-    reference's combined-code tiles (pack_pairs, GAT_PAIR_CHUNK default)."""
+    """The same combined-code tiles, the reference's pack_pairs, through the
+    port's and the JAX ShardedPairScorer: the same chunk scores, pad rows
+    included; the port's pack_pairs writes those tiles byte for byte."""
     from genomealignmenttools_tpu.ops.pair_rescore import pack_pairs
+    from genomealignmenttools_tpu_torch.ops.pair_rescore import \
+        pack_pairs as port_pack_pairs
     scheme = score_scheme_default()
     t_genome, q_genome, chains = _inputs(fixtures_dir)
     chains = _group(chains, "-")
@@ -80,17 +83,18 @@ def test_sharded_pair_scorer_matches_jax_and_host(fixtures_dir, n_dev):
     t_codes, q_codes = t_genome.codes("chrA", "+"), q_genome.codes("chrQ1",
                                                                    "-")
     lut = np.asarray(scheme.lut)
-    c8, c_block_ref, m_ref = pack_pairs(t_codes, q_codes, blocks)
+    c8, c_block, m = pack_pairs(t_codes, q_codes, blocks)
     ref = jax_mesh.ShardedPairScorer(
-        lut, jax_mesh.make_mesh(n_dev)).chunk_scores(c8)[:m_ref]
-    scorer = pm.ShardedPairScorer(lut, ["cpu"] * n_dev)
-    tiles, c_block, m = scorer.pack(t_codes, q_codes, blocks)
-    cs = scorer.chunk_scores(tiles)
-    assert m == m_ref and np.array_equal(c_block, c_block_ref)
-    assert cs.dtype == np.int32 and np.array_equal(cs, ref.astype(np.int32))
+        lut, jax_mesh.make_mesh(n_dev)).chunk_scores(c8)
+    cs = pm.ShardedPairScorer(lut, ["cpu"] * n_dev).chunk_scores(c8)
+    assert cs.dtype == np.int32 and cs.shape == ref.shape == (c8.shape[0],)
+    assert np.array_equal(cs, ref.astype(np.int32))
     got = np.zeros(blocks.shape[0], np.int64)
-    np.add.at(got, c_block, cs.astype(np.int64))
+    np.add.at(got, c_block, cs[:m].astype(np.int64))
     assert np.array_equal(got, expected)
+    port_c8, port_c_block, port_m = port_pack_pairs(t_codes, q_codes, blocks)
+    assert port_m == m and np.array_equal(port_c_block, c_block)
+    assert np.array_equal(port_c8, c8)
 
 
 @pytest.mark.parametrize("n_dev", N_DEV)
