@@ -49,13 +49,33 @@ non-zero:
               must launch K1.  Then the same in pair mode (GAT_RESCORE=pair
               GAT_COMBINE=device) in each tile format (GAT_PAIR_TILES unset,
               code, score4): chainNet -rescore and chainCleaner must launch
-              the format's K2 entry (its own LAUNCHES key) and no other.
-7. chr1     - the bench workload (utils/bench_workload.py, 256 Mb per genome,
+              the format's K2 entry (its own LAUNCHES key) and no other
+              kernel; in window mode no K2 entry runs.
+7. goldens - the golden cases of the reference's tests that reach a scorer
+              or the band batch (tests/golden_cases.py, the table
+              of the tier-1 twins) through the port's CLI on the card:
+              scoreChain's six cases and its nib-dir inputs, chainCleaner's
+              nib-dir inputs, -net, internal netting, GAT_FUSED_BREAKS=0,
+              -debug (six dumps, in the case's own working directory),
+              -suspectDataFile, -onlyThis*, the meta pass-through, the six
+              thresholds and -doPairs (native and python break loop),
+              chainNet -rescore and FilterChainsNetFilterNets, each
+              byte-identical to its goldens in window mode (K1, no K2) and
+              in pair mode in each tile format (the format's K2 row source
+              and no other; scoreChain launches neither); chainCleaner's
+              zero-removal side effect with GAT_BREAK_LOOP 1 against 0;
+              chr1-lite chainCleaner and chainNet -rescore against the C
+              hashes of tests/golden/chr1_lite.json (window, int8 pair); the
+              planted cases of tests/golden/planted_cases.json through the
+              port's GapAligner on the card and three planted gaps through
+              its RepeatFiller (K3), against construction truth.  One line
+              per case and mode: goldens, launches, seconds.
+8. chr1     - the bench workload (utils/bench_workload.py, 256 Mb per genome,
               384 chains, ~367 Mb aligned) through the port's scoreChain,
               byte-compared with a host-native run of the same file; cold and
               warm seconds, Mb aligned per second, K1 launches, and K1's time
               against the plain version's at the main path's shapes.
-8. resident - the same chains through TorchPairChainScorer (bench.py's
+9. resident - the same chains through TorchPairChainScorer (bench.py's
               resident protocol; a pass is one K2 launch from the int8
               tiles, then the finish): every chain's (global, local) equal
               to the host-native scores, 45 K2 launches in 45 passes; pack,
@@ -71,16 +91,16 @@ non-zero:
               and share of the HBM rate, the entry against its plain
               version and K2's int8 entry on the same chunks, exact and
               timed in turns beside its bound; peak device memory.
-9. cleaner  - chainNet -rescore on the chainCleaner bench workload
+10. cleaner  - chainNet -rescore on the chainCleaner bench workload
               (build_cleaner_workload, as bench.py builds it) through the
               port in window mode and in pair mode with the device combine,
               each byte-compared with a host-native run; wall seconds of all.
-10. gap fixtures - RepeatFiller --refQuirks through the port's CLI on the
+11. gap fixtures - RepeatFiller --refQuirks through the port's CLI on the
               card, byte-identical to tests/golden; RepeatFiller in clean
               mode and patchChain (6 arguments, with and without -unmask),
               byte-compared with the port's host band batch (GAT_BAND=host,
               in this process, no kernel); each port run must launch K3.
-11. repeatfiller - build_repeatfiller_workload(n_gaps=600), bench.py's
+12. repeatfiller - build_repeatfiller_workload(n_gaps=600), bench.py's
               depth, through the port's RepeatFiller (must launch K3) and
               through its host band batch (GAT_BAND=host), byte-compared,
               wall seconds of both; then the workload's extension problems
@@ -88,25 +108,25 @@ non-zero:
               K3's sub-batches: equal, CUDA-event ms of each, problem and
               column counts, the columns and band cells K3 really ran and
               the bound they give, peak device memory.
-12. filterChains - FilterChainsNetFilterNets through the port's CLI on the
+13. filterChains - FilterChainsNetFilterNets through the port's CLI on the
               fixtures, byte-identical to tests/golden; must launch K1.
-13. sharded - the chr1 chains through ShardedChainScorer on [cuda:0] * k,
+14. sharded - the chr1 chains through ShardedChainScorer on [cuda:0] * k,
               k = 1, 2, 4, and on make_mesh(): every (global, local,
-              aliBases) equal to the host-native scores of phase 8, one K2
+              aliBases) equal to the host-native scores of phase 9, one K2
               launch per non-empty shard, seconds per k;
               ShardedBlockScorer at k = 4 on one (t, q, strand) group equal
               to the single-device K1 sums.
-14. distributed - clean_chains_distributed on the cleaner workload as two
+15. distributed - clean_chains_distributed on the cleaner workload as two
               rank subprocesses on torch.distributed, gloo with both ranks
               on cuda:0 (and nccl with one card per rank where there are
               two cards): merged chain and bed byte-identical to a
               single-process host-native chainCleaner run in this process
               (GAT_RESCORE=hostnative); wall seconds.
-15. profile - the port's scoreChain on chr1 (warm) with -profile=dir, twice:
+16. profile - the port's scoreChain on chr1 (warm) with -profile=dir, twice:
               each torch.profiler trace must name K1's kernel; summed CUDA
               kernel time, the traced window and their ratio (device-busy
               share).
-16. dryrun  - dryrun_multidevice([cuda:0] * 4): the sharded scorers, the
+17. dryrun  - dryrun_multidevice([cuda:0] * 4): the sharded scorers, the
               sharded cleaner, chainNet -rescore and RepeatFiller on the
               fixtures, and the band DP split across devices, all exact.
 
@@ -149,8 +169,6 @@ INT32_OPS_PER_S = 67e12 / 4
 # j*E offsets: 7), the three parent bits (5), the column best (2), the
 # matrix index (1)
 K3_OPS_PER_CELL = 25
-PAIR_ENV = {"GAT_RESCORE": "pair", "GAT_COMBINE": "device",
-            "GAT_PAIR_TILES": None}
 # K2's row sources past the int8 one: GAT_PAIR_TILES value -> the kind of
 # ops/pair_combine.py, whose LAUNCHES key is pair_combine.LAUNCH_KEY[kind]
 FORMATS = ("code", "score4")
@@ -555,6 +573,41 @@ def run_cli(args: list[str], env: dict | None = None) -> dict:
     return counts
 
 
+def golden_cases():
+    """tests/golden_cases.py: the twins' case table and the scoring modes'
+    environments (MODES); it imports only the standard library."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import golden_cases as gc
+    return gc
+
+
+def mode_keys() -> dict:
+    """The LAUNCHES key each scoring mode of golden_cases.MODES must launch:
+    K1 in window mode, in a pair mode the K2 row source of its tile format
+    (pair_combine.LAUNCH_KEY; GAT_PAIR_TILES unset is int8, score8)."""
+    from genomealignmenttools_tpu_torch.ops.pair_combine import LAUNCH_KEY
+    return {mode: KERNEL if mode == "window" else
+            LAUNCH_KEY[env["GAT_PAIR_TILES"] or "score8"]
+            for mode, env in golden_cases().MODES.items()}
+
+
+def check_launches(label: str, tool: str, mode: str, counts: dict) -> None:
+    """Window mode launches K1 and no K2 row source; a pair mode launches
+    the row source of its tile format and no other, except scoreChain, which
+    takes score_table and the native combine there (as the reference does)
+    and launches neither kernel."""
+    keys = mode_keys()
+    key = keys[mode]
+    scores_on_k2 = mode != "window" and tool != "scoreChain"
+    if mode == "window" or scores_on_k2:
+        check(counts[key] > 0, f"{label} ({mode}) never launched {key}")
+    others = [k for k in keys.values() if k not in (key, KERNEL)]
+    if mode != "window":
+        others.append(KERNEL)
+    check(not any(counts[k] for k in others),
+          f"{label} ({mode}) launched another kernel: {counts}")
+
+
 def phase_fixtures(tmp: str) -> dict:
     """The three tools on the fixtures in window mode (K1), then in pair mode
     with the device combine in each tile format (K2's row source of the
@@ -586,27 +639,16 @@ def phase_fixtures(tmp: str) -> dict:
           (o("clean.bed"), g("chainCleaner.removedSuspects.bed"))]),
     ]
     from genomealignmenttools_tpu_torch.ops.pair_combine import LAUNCH_KEY
-    modes = [("window", None, None), ("pair", PAIR_ENV, K2)]
-    modes += [(f"pair, {kind} tiles", {**PAIR_ENV, "GAT_PAIR_TILES": kind},
-               LAUNCH_KEY[kind]) for kind in FORMATS]
+    keys = mode_keys()
     launches = {LAUNCH_KEY[kind]: 0 for kind in FORMATS}
-    for mode, env, key in modes:
+    for mode, env in golden_cases().MODES.items():
         for label, args, pairs in runs:
             t0 = time.monotonic()
             counts = run_cli(args, env)
             secs = time.monotonic() - t0
-            if env is None:
-                check(counts[KERNEL] > 0, f"{label} never launched {KERNEL}")
-            elif label != "scoreChain":
-                check(counts[key] > 0, f"{label} ({mode}) never launched "
-                                       f"{key}")
-            if key is not None:
-                others = [k for k in (K2, *launches) if k != key]
-                check(not any(counts[k] for k in others),
-                      f"{label} ({mode}) launched another row source: "
-                      f"{counts}")
-            if key in launches:
-                launches[key] += counts[key]
+            check_launches(label, args[0], mode, counts)
+            if keys[mode] in launches:
+                launches[keys[mode]] += counts[keys[mode]]
             for got, want in pairs:
                 check(same_bytes(got, want),
                       f"{label} ({mode}): {got} != {want}")
@@ -615,6 +657,148 @@ def phase_fixtures(tmp: str) -> dict:
                   + ", ".join(f"{k} launches {v}" for k, v in counts.items())
                   + f"; {secs:.3f} s")
     return launches
+
+
+def phase_goldens(tmp: str, dev) -> dict:
+    """The reference's golden cases that reach a scorer or the band batch,
+    on the card (tests/golden_cases.py, the tier-1 twins' table):
+    every scoring case through the port's CLI in window mode and in pair
+    mode in each tile format, byte-identical to its goldens; chainCleaner's
+    zero-removal side effect with GAT_BREAK_LOOP 1 against 0; chr1-lite
+    chainCleaner and chainNet -rescore against the C binaries' hashes
+    (window, int8 pair); the planted cases through the port's GapAligner on
+    the card and three planted gaps through its RepeatFiller, against
+    construction truth.  Returns the launches of each kernel."""
+    import torch
+
+    from genomealignmenttools_tpu_torch.device import LAUNCHES, perf_reset
+    gc = golden_cases()
+    total = dict.fromkeys(mode_keys().values(), 0)
+    total[K3] = 0
+    by_mode: dict = {}     # mode -> [runs, seconds]
+
+    def record(label, mode, counts, held_to, secs):
+        runs = by_mode.setdefault(mode, [0, 0.0])
+        runs[0] += 1
+        runs[1] += secs
+        for k in total:
+            total[k] += counts[k]
+        launched = ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+        print(f"[goldens] {label} ({mode}): {held_to}; launches "
+              f"{launched or 'none'}; {secs:.3f} s")
+
+    for mode in gc.MODES:
+        for case in gc.scoring_cases(""):
+            out = os.path.join(tmp, "goldens", mode, case)
+            os.makedirs(out)
+            argv, env, outputs = gc.scoring_cases(out)[case]
+            t0 = time.monotonic()
+            with contextlib.chdir(out):
+                counts = run_cli(argv, {**gc.MODES[mode], **env})
+            secs = time.monotonic() - t0
+            for got, golden in outputs:
+                diff = gc.first_difference(got, golden)
+                check(diff is None, f"{case} ({mode}): {diff}")
+            check_launches(case, argv[0], mode, counts)
+            record(case, mode, counts, "byte-identical to " + ", ".join(
+                os.path.basename(g) if g else "an empty file"
+                for _, g in outputs), secs)
+        # tests/test_chain_cleaner_parity.py:168-212, both loops on the card
+        out = os.path.join(tmp, "goldens", mode, "zero_removal")
+        perturbed = gc.perturbed_input(out + ".chain")
+        texts = {}
+        for loop in ("1", "0"):
+            os.makedirs(os.path.join(out, loop))
+            t0 = time.monotonic()
+            counts = run_cli(gc.zero_removal_argv(
+                out + ".chain", os.path.join(out, loop)),
+                {**gc.MODES[mode], "GAT_BREAK_LOOP": loop})
+            secs = time.monotonic() - t0
+            check_launches("chain_cleaner_parity-zero_removal", "chainCleaner",
+                           mode, counts)
+            texts[loop] = []
+            for name in ("c.chain", "c.bed"):
+                with open(os.path.join(out, loop, name)) as fh:
+                    texts[loop].append(fh.read())
+            check(texts[loop][1] == "", f"zero removal ({mode}, "
+                                        f"GAT_BREAK_LOOP={loop}) removed")
+            record(f"chain_cleaner_parity-zero_removal_score_side_effect, "
+                   f"GAT_BREAK_LOOP={loop}", mode, counts,
+                   "nothing removed", secs)
+        check(texts["1"] == texts["0"] and texts["1"][0] != perturbed,
+              f"zero removal ({mode}): GAT_BREAK_LOOP 1 and 0 differ, or the "
+              f"scores were not rewritten")
+        print(f"[goldens] chain_cleaner_parity-zero_removal_score_side_effect "
+              f"({mode}): GAT_BREAK_LOOP 1 and 0 byte-identical, every "
+              f"perturbed score rewritten")
+
+    from genomealignmenttools_tpu_torch.utils.bench_workload import \
+        build_cleaner_workload
+    t0 = time.monotonic()
+    lite = build_cleaner_workload(os.path.join(tmp, "goldens", "lite"),
+                                  n_scenarios=gc.LITE_SCENARIOS,
+                                  n_bulk=gc.LITE_BULK)
+    print(f"[goldens] chr1-lite workload ({gc.LITE_SCENARIOS} scenarios + "
+          f"{gc.LITE_BULK} bulk chains) built in {time.monotonic() - t0:.3f} "
+          f"s (set-up)")
+    hashes = gc.lite_hashes()
+    for mode in ("window", "pair"):
+        for case, (argv, outputs) in gc.lite_cases(
+                lite, os.path.join(tmp, "goldens", "lite")).items():
+            t0 = time.monotonic()
+            counts = run_cli(argv, gc.MODES[mode])
+            secs = time.monotonic() - t0
+            for path, key in outputs:
+                check(gc.sha256(path) == hashes[key],
+                      f"{case} ({mode}): {path} is not the C hash {key}")
+            check_launches(case, argv[0], mode, counts)
+            record(case, mode, counts, "the C hashes " + ", ".join(
+                k for _, k in outputs), secs)
+
+    from genomealignmenttools_tpu_torch.formats.scorematrix import \
+        score_scheme_default
+    from genomealignmenttools_tpu_torch.ops.seed_extend import GapAligner
+    sch = score_scheme_default()
+    aligner = GapAligner(sch.lut, seed_len=10, hsp_threshold=1500,
+                         gapped_threshold=2000, gap_open=sch.gap_open,
+                         gap_extend=sch.gap_extend,
+                         char_matrix=sch.char_matrix(), device=dev)
+    for case in gc.planted_cases():
+        name = case["spec"]["name"]
+        t, q, _ = gc.build_planted(name)
+        perf_reset()
+        t0 = time.monotonic()
+        got = aligner.align(t, q, 0, t.shape[0], 0, q.shape[0])
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        counts = dict(LAUNCHES)
+        problem = gc.planted_recovery_problem(name, case["planted_blocks"],
+                                              got)
+        check(problem is None, f"planted {name}: {problem}")
+        check((counts[K3] > 0) == bool(got),
+              f"planted {name}: {len(got)} blocks, {counts}")
+        record(f"planted_alignment-planted_recovery[{name}]", "GapAligner",
+               counts, "the planted blocks of planted_cases.json", secs)
+    for case, name in gc.PLANTED_GAPS.items():
+        chain, t2, q2, planted = gc.planted_gap_inputs(
+            name, os.path.join(tmp, "goldens", name))
+        out = os.path.join(tmp, "goldens", name, "out.chain")
+        t0 = time.monotonic()
+        counts = run_cli(["RepeatFiller", "-c", chain, "-T2", t2, "-Q2", q2,
+                          "-o", out])
+        secs = time.monotonic() - t0
+        with open(out) as fh:
+            problem = gc.planted_gap_problem(case, chain, fh.read(), planted)
+        check(problem is None, f"{case}: {problem}")
+        check(counts[K3] > 0, f"{case} never launched {K3}")
+        record(case, "RepeatFiller", counts, "the splice construction truth "
+               "demands", secs)
+    print(f"[goldens] {sum(r[0] for r in by_mode.values())} runs, every one "
+          f"byte-identical to its golden, C hash or construction truth; "
+          f"launches {total}; runs and seconds by mode: "
+          + ", ".join(f"{m} {r[0]} in {r[1]:.3f} s" for m, r in
+                      by_mode.items()))
+    return total
 
 
 def host_native_factory():
@@ -1056,7 +1240,8 @@ def phase_cleaner(tmp: str, n_scenarios: int = 2000,
     secs = {"host-native (cold: decodes both genomes)":
             host_native("host")}
     counts = {}
-    for tag, env in (("window", None), ("pair", PAIR_ENV)):
+    modes = golden_cases().MODES
+    for tag, env in (("window", None), ("pair", modes["pair"])):
         t0 = time.monotonic()
         counts[tag] = run_cli(
             ["chainNet", w["chain"], w["t_sizes"], w["q_sizes"],
@@ -1636,6 +1821,7 @@ def main() -> int:
         # the phases of earlier slices first, so that their numbers are
         # taken as before: no profiler started, no other process on the card
         format_launches = clocked(phase_fixtures, tmp)
+        goldens = clocked(phase_goldens, tmp, dev)
         entry, chr1 = clocked(phase_chr1, tmp, dev)
         resident = clocked(phase_resident, chr1, dev, v1_lib)
         k2_launches, cleaner = clocked(phase_cleaner, tmp)
@@ -1648,12 +1834,13 @@ def main() -> int:
     dry = clocked(phase_dryrun, dev)
     entry["max_abs_err"] = max(worst, entry["max_abs_err"])
     entry["launches"] += (k1_fc + k1_prof + sharded[KERNEL]
-                          + dist_launches[KERNEL] + dry[KERNEL])
+                          + dist_launches[KERNEL] + dry[KERNEL]
+                          + goldens[KERNEL])
     k2_entry = {"name": K2, "route": "cuda",
                 "source": "genomealignmenttools_tpu_torch/csrc/combine.cu",
                 "replaces": "genomealignmenttools_tpu/ops/pallas_combine.py:112",
                 "launches": (resident["launches"] + k2_launches + sharded[K2]
-                             + dist_launches[K2] + dry[K2]),
+                             + dist_launches[K2] + dry[K2] + goldens[K2]),
                 "max_abs_err": max(worst_k2, resident["max_abs_err"]),
                 **{k: resident[k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}}
@@ -1666,14 +1853,15 @@ def main() -> int:
             "source": "genomealignmenttools_tpu_torch/csrc/combine.cu",
             "replaces": "genomealignmenttools_tpu/ops/pallas_combine.py:112 "
                         "with the decode of ops/pair_rescore.py:757-759",
-            "launches": res["launches"] + format_launches[key],
+            "launches": (res["launches"] + format_launches[key]
+                         + goldens[key]),
             "max_abs_err": max(worst_formats[kind], res["max_abs_err"]),
             **{k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}})
     k3_entry = {"name": K3, "route": "cuda",
                 "source": "genomealignmenttools_tpu_torch/csrc/band.cu",
                 "replaces": "genomealignmenttools_tpu/ops/pallas_band.py:63",
-                "launches": rf["launches"] + dry[K3],
+                "launches": rf["launches"] + dry[K3] + goldens[K3],
                 "max_abs_err": max(worst_k3, rf["max_abs_err"]),
                 **{k: rf[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}}

@@ -202,3 +202,72 @@ def test_gap_calc_default_scores_match(setup, chain_sets):
     chains = chain_sets["random"]
     assert port.score_chains(chains) == [host.global_and_local(c)
                                          for c in chains]
+
+
+class _Arrays:
+    """A genome whose codes(name, strand) is a fixed numpy array a name."""
+
+    def __init__(self, arrays):
+        self.arrays = arrays
+
+    def codes(self, name, strand):
+        return self.arrays[name]
+
+
+def test_dev_codes_eviction_order_is_the_reference_s(monkeypatch):
+    """The same sequence of host arrays through the port's TorchGenomeCache
+    and through the reference's _dev_codes_entry/_dev_codes_store (its
+    dict logic needs no jax array: any object stands for the device copy)
+    leaves the same arrays resident, in the same order, after every step.
+    The budget is set on both modules' attributes with monkeypatch: the
+    port's is the constant DEV_CODES_BUDGET, the reference's is read from
+    GAT_DEV_CODES_BUDGET once, at import."""
+    from genomealignmenttools_tpu.ops import rescore as ref_rescore
+    rng = np.random.default_rng(5)
+    sizes = {"a": 300, "b": 500, "c": 200, "d": 700, "e": 100}
+    arrays = {k: rng.integers(0, 5, n).astype(np.uint8)
+              for k, n in sizes.items()}
+    budget = 1000
+    monkeypatch.setattr(port_rescore, "_DEV_CODES", {})
+    monkeypatch.setattr(port_rescore, "DEV_CODES_BUDGET", budget)
+    monkeypatch.setattr(ref_rescore, "_DEV_CODES", {})
+    monkeypatch.setattr(ref_rescore, "_DEV_CODES_BUDGET", budget)
+    cache = TorchGenomeCache(_Arrays(arrays), torch.device("cpu"))
+    uploads = {}
+    for name in "abacdbeeadcab":
+        codes = arrays[name]
+        h2d = port_device.PERF["h2d_bytes"]
+        before = port_rescore._DEV_CODES.get((id(codes), "cpu"))
+        got = cache.codes(name, "+")
+        assert np.array_equal(got.numpy(), codes)
+        if before is not None:   # a hit re-uploads nothing
+            assert got is before[1]
+            assert port_device.PERF["h2d_bytes"] == h2d
+        uploads[name] = uploads.get(name, 0) + (before is None)
+        if ref_rescore._dev_codes_entry(codes, 0, "u8") is None:
+            ref_rescore._dev_codes_store(codes, 0, "u8", object())
+        port_order = [e[0] for e in port_rescore._DEV_CODES.values()]
+        ref_order = [e[0] for e in ref_rescore._DEV_CODES.values()]
+        assert [id(a) for a in port_order] == [id(a) for a in ref_order]
+        assert sum(a.nbytes for a in port_order) <= budget
+    assert sum(uploads.values()) < len("abacdbeeadcab")
+
+
+def test_dev_codes_budget_of_one_genome_evicts_the_first(setup,
+                                                         monkeypatch):
+    """With a budget of one genome's bytes, the second genome's codes evict
+    the first's; asking for the first again uploads it again."""
+    _, _, t_genome, q_genome = setup
+    first = q_genome.codes("chrQ1", "+")
+    second = t_genome.codes("chrA", "+")
+    assert second.nbytes <= first.nbytes
+    monkeypatch.setattr(port_rescore, "_DEV_CODES", {})
+    monkeypatch.setattr(port_rescore, "DEV_CODES_BUDGET", first.nbytes)
+    cpu = torch.device("cpu")
+    a = TorchGenomeCache(q_genome, cpu).codes("chrQ1", "+")
+    assert TorchGenomeCache(q_genome, cpu).codes("chrQ1", "+") is a
+    TorchGenomeCache(t_genome, cpu).codes("chrA", "+")
+    assert [e[0] for e in port_rescore._DEV_CODES.values()] == [second]
+    again = TorchGenomeCache(q_genome, cpu).codes("chrQ1", "+")
+    assert again is not a and torch.equal(again, a)
+    assert [e[0] for e in port_rescore._DEV_CODES.values()] == [first]
