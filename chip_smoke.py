@@ -126,7 +126,14 @@ non-zero:
               each torch.profiler trace must name K1's kernel; summed CUDA
               kernel time, the traced window and their ratio (device-busy
               share).
-17. dryrun  - dryrun_multidevice([cuda:0] * 4): the sharded scorers, the
+17. bench   - the port's bench (python -m genomealignmenttools_tpu_torch.
+              bench) in a subprocess at reduced sizes (chr1-lite
+              chainCleaner: 200 scenarios + 3,000 bulk chains; chr1 32 Mb
+              and 48 chains; 60 RepeatFiller gaps): rc 0, its JSON line,
+              every section done, every output byte-identical to the
+              host-native run, and K1, K2 and K3 launched in the sections
+              that run them; those launches join the kernels line.
+18. dryrun  - dryrun_multidevice([cuda:0] * 4): the sharded scorers, the
               sharded cleaner, chainNet -rescore and RepeatFiller on the
               fixtures, and the band DP split across devices, all exact.
 
@@ -1753,6 +1760,85 @@ def phase_profile(tmp: str, meta: dict) -> int:
     return launches
 
 
+# the port's bench at reduced sizes: chr1-lite chainCleaner, 32 Mb chr1, 60
+# RepeatFiller gaps
+BENCH_ARGS = ["--cleaner-scenarios", "200", "--cleaner-bulk", "3000",
+              "--chr1-size", "32000000", "--chr1-chains", "48",
+              "--rf-gaps", "60"]
+BENCH_SECTIONS = ["workload_cleaner", "cleaner", "chainnet_rescore",
+                  "workload_chr1", "scorechain", "resident",
+                  "workload_repeatfiller", "repeatfiller", "cleaner_1thread"]
+
+
+def phase_bench(tmp: str) -> dict:
+    """`python -m genomealignmenttools_tpu_torch.bench` on the card at
+    BENCH_ARGS' sizes, in a subprocess: rc 0, one JSON line last with the
+    root bench's keys, every section done, no failure, every parity field
+    true, and launches in every card section (K1 in the window runs of
+    chainCleaner, chainNet -rescore and scoreChain, K2 in their pair runs
+    and the resident pass, K3 in RepeatFiller).  Returns the bench's
+    launches summed over its sections."""
+    env = dict(os.environ, GAT_BENCH_DIR=os.path.join(tmp, "bench"),
+               GAT_BENCH_BUDGET_S="240",
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.monotonic()
+    p = subprocess.run(
+        [sys.executable, "-m", "genomealignmenttools_tpu_torch.bench",
+         *BENCH_ARGS], env=env, cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    secs = time.monotonic() - t0
+    lines = p.stdout.strip().splitlines()
+    check(p.returncode == 0 and bool(lines),
+          f"the bench exited {p.returncode}: {p.stderr[-3000:]}")
+    r = json.loads(lines[-1])
+    extra = r["extra"]
+    check(list(r) == ["metric", "value", "unit", "vs_baseline", "extra"],
+          f"the bench's line has keys {list(r)}")
+    check(extra["failures"] == [], f"bench failures: {extra['failures']}")
+    check(extra["sections_done"] == BENCH_SECTIONS,
+          f"bench sections done: {extra['sections_done']}")
+    for section in ("cleaner", "chainnet_rescore", "scorechain"):
+        parity = extra[section]["byte_identical"]
+        check(bool(parity) and all(parity.values()),
+              f"bench {section}: {parity}")
+    check(extra["resident"]["matches_hostnative"]
+          and extra["repeatfiller"]["device_matches_host"],
+          "bench resident or repeatfiller differs from the host-native run")
+    runs = {f"{s} {m}": extra[s][m]["launches"]
+            for s in ("cleaner", "chainnet_rescore", "scorechain")
+            for m in ("port_window", "port_pair")}
+    runs["resident"] = extra["resident"]["launches"]
+    runs["repeatfiller"] = extra["repeatfiller"]["device"]["launches"]
+    for label, key in [(f"{s} port_window", KERNEL) for s in
+                       ("cleaner", "chainnet_rescore", "scorechain")] + [
+            ("cleaner port_pair", K2), ("chainnet_rescore port_pair", K2),
+            ("resident", K2), ("repeatfiller", K3)]:
+        check(runs[label][key] > 0, f"bench {label} never launched {key}")
+    total: dict = {}
+    for counts in runs.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    cl, res, rf = extra["cleaner"], extra["resident"], extra["repeatfiller"]
+    med = lambda d: d["warm_s"]["median"]  # noqa: E731
+    print(f"[bench] python -m genomealignmenttools_tpu_torch.bench "
+          f"{' '.join(BENCH_ARGS)}: rc 0, {secs:.1f} s, every section done, "
+          f"every output byte-identical to the host-native run; value "
+          f"{r['value']:.4f} s (chainCleaner, port window mode, warm median)"
+          f", vs_baseline {r['vs_baseline']}")
+    print(f"[bench] chainCleaner warm medians: window "
+          f"{med(cl['port_window']):.4f} s, pair {med(cl['port_pair']):.4f} s, host-native "
+          f"{med(cl['hostnative']):.4f} s, 1 thread "
+          f"{cl['warm_1thread_s']['median']:.4f} s; chainNet -rescore window "
+          f"{med(extra['chainnet_rescore']['port_window']):.4f} s; scoreChain "
+          f"window {med(extra['scorechain']['port_window']):.4f} s; resident "
+          f"sustained {res['sustained_pass_s']['median'] * 1e3:.4f} ms a pass;"
+          f" RepeatFiller card {rf['device']['s']:.3f} s, host "
+          f"{rf['host']['s']:.3f} s")
+    print(f"[bench] launches by run: {runs}")
+    return total
+
+
 def phase_filter_chains(tmp: str) -> int:
     """FilterChainsNetFilterNets through the port's CLI on the fixtures,
     byte-identical to tests/golden; must launch K1.  Returns the launches."""
@@ -1831,16 +1917,18 @@ def main() -> int:
         sharded = clocked(phase_sharded, chr1, resident.pop("host"), dev)
         dist_launches = clocked(phase_distributed, tmp, cleaner)
         k1_prof = clocked(phase_profile, tmp, chr1)
+        bench = clocked(phase_bench, tmp)
     dry = clocked(phase_dryrun, dev)
     entry["max_abs_err"] = max(worst, entry["max_abs_err"])
     entry["launches"] += (k1_fc + k1_prof + sharded[KERNEL]
                           + dist_launches[KERNEL] + dry[KERNEL]
-                          + goldens[KERNEL])
+                          + goldens[KERNEL] + bench[KERNEL])
     k2_entry = {"name": K2, "route": "cuda",
                 "source": "genomealignmenttools_tpu_torch/csrc/combine.cu",
                 "replaces": "genomealignmenttools_tpu/ops/pallas_combine.py:112",
                 "launches": (resident["launches"] + k2_launches + sharded[K2]
-                             + dist_launches[K2] + dry[K2] + goldens[K2]),
+                             + dist_launches[K2] + dry[K2] + goldens[K2]
+                             + bench[K2]),
                 "max_abs_err": max(worst_k2, resident["max_abs_err"]),
                 **{k: resident[k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}}
@@ -1854,14 +1942,15 @@ def main() -> int:
             "replaces": "genomealignmenttools_tpu/ops/pallas_combine.py:112 "
                         "with the decode of ops/pair_rescore.py:757-759",
             "launches": (res["launches"] + format_launches[key]
-                         + goldens[key]),
+                         + goldens[key] + bench[key]),
             "max_abs_err": max(worst_formats[kind], res["max_abs_err"]),
             **{k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}})
     k3_entry = {"name": K3, "route": "cuda",
                 "source": "genomealignmenttools_tpu_torch/csrc/band.cu",
                 "replaces": "genomealignmenttools_tpu/ops/pallas_band.py:63",
-                "launches": rf["launches"] + dry[K3] + goldens[K3],
+                "launches": (rf["launches"] + dry[K3] + goldens[K3]
+                             + bench[K3]),
                 "max_abs_err": max(worst_k3, rf["max_abs_err"]),
                 **{k: rf[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}}
