@@ -133,7 +133,35 @@ non-zero:
               every section done, every output byte-identical to the
               host-native run, and K1, K2 and K3 launched in the sections
               that run them; those launches join the kernels line.
-18. dryrun  - dryrun_multidevice([cuda:0] * 4): the sharded scorers, the
+18. variants - every row of tests/variant_cases.py (the table of
+              tests/test_torch_variants.py's CPU twins) through the port's
+              CLI with -device=cuda or its engines and scorer with a
+              TorchChainScorer on the card: chr1-lite chainCleaner and
+              chainNet -rescore (window, int8 pair) against the C hashes and
+              RepeatFiller on 24 gaps, at GAT_THREADS=1 and =8; chainCleaner
+              -numShards 2 and 3, -shard, -shardOut, then -mergeShards, and
+              clean_chains and chain_net(rescore=True) with the scorer as
+              scorer_factory, in window mode and each pair tile format,
+              against the goldens; chainNet -rescore and chainCleaner at
+              GAT_PAIR_CHUNK 2, 6, 130 and 258 in each format (4-bit rows of
+              1, 3, 65 and 129 bytes); scoreChain, chainNet -rescore and
+              chainCleaner under GAT_NATIVE=0 (window, int8 pair);
+              GAT_COMBINE=auto (no K2 on a chain set's first call, one on
+              the repeat) and =host in each format, and the int32 overflow
+              fallback (PERF["combine_overflow"] + 1), against the
+              host-native scores; RepeatFiller --refQuirks batched, with
+              GAT_RF_BATCH=0 (one K3 launch a gap that gives the band DP
+              work) and with GAT_HSP_NATIVE=0, against the golden, and
+              GAT_RF_BATCH=0 on the 24 gaps against the 1-thread run.  The
+              rows of GAT_THREADS=1, =8 and GAT_NATIVE=0 run in one child
+              process a setting (python3 chip_smoke.py --variants-child
+              SETTING LITE_DIR RF_DIR OUT, one JSON line of hashes and
+              launches), side by side, each checking that it loaded no jax.
+              Each row must launch what the table says (K1 in window mode,
+              the format's K2 entry and no other with the device combine,
+              K3 in RepeatFiller) and nothing else.  One line per row:
+              variant, mode, setting, what it is held to, launches, seconds.
+19. dryrun  - dryrun_multidevice([cuda:0] * 4): the sharded scorers, the
               sharded cleaner, chainNet -rescore and RepeatFiller on the
               fixtures, and the band DP split across devices, all exact.
 
@@ -1865,6 +1893,101 @@ def phase_filter_chains(tmp: str) -> int:
     return counts[KERNEL]
 
 
+def variant_cases():
+    """tests/variant_cases.py: the variant table and its runner; it imports
+    only the standard library (and golden_cases) at module level."""
+    golden_cases()
+    import variant_cases as vc
+    return vc
+
+
+def variants_child(setting: str, lite_dir: str, rf_dir: str,
+                   out: str) -> int:
+    """python3 chip_smoke.py --variants-child SETTING LITE_DIR RF_DIR OUT:
+    the variant rows of one setting (variant_cases.SETTINGS, whose
+    environment the caller gives this process) on the card; prints their
+    hashes, launches and seconds as one JSON line.  Fails if jax or the JAX
+    package was loaded."""
+    import torch
+    check(torch.cuda.is_available(), "the variants child needs a CUDA card")
+    vc = variant_cases()
+    payload = vc.run_child(setting, lite_dir, rf_dir, out, "cuda")
+    check(not payload["foreign"], f"variants child {setting} loaded jax or "
+                                  f"the JAX package: {payload['foreign']}")
+    print(json.dumps(payload))
+    return 0
+
+
+def phase_variants(tmp: str) -> dict:
+    """Every row of tests/variant_cases.py on the card: the rows of each
+    setting that needs a fresh process (GAT_THREADS=1, =8, GAT_NATIVE=0) in
+    one child each (--variants-child), side by side, and the others in this
+    process meanwhile; each row byte-identical to what it is held to and
+    launching what it must.  Returns the launches of each kernel."""
+    vc = variant_cases()
+    root = os.path.join(tmp, "variants")
+    lite_dir = os.path.join(tmp, "goldens", "lite")    # built by [goldens]
+    rf_dir, out = os.path.join(root, "rf24"), os.path.join(root, "out")
+    t0 = time.monotonic()
+    lite, rf = vc.workloads(lite_dir, rf_dir)
+    print(f"[variants] chr1-lite (from [goldens]) and 24 RepeatFiller gaps "
+          f"ready in {time.monotonic() - t0:.3f} s (set-up)")
+    table = vc.rows(out, lite, rf)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    children = {}
+    for setting, extra in vc.SETTINGS.items():
+        if setting != "main":
+            children[setting] = (subprocess.Popen(
+                [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                 "--variants-child", setting, lite_dir, rf_dir, out],
+                env={**env, **extra}, cwd=REPO, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True), time.monotonic())
+    results: dict = {}
+    with vc.Launches("cuda") as launches:
+        for row in table.values():
+            if row.setting == "main":
+                results[row.id] = vc.run_row(row, out, "cuda", launches)
+    child_secs = {}
+    for setting, (proc, started) in children.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        child_secs[setting] = time.monotonic() - started
+        lines = stdout.strip().splitlines()
+        check(proc.returncode == 0 and bool(lines),
+              f"variants child {setting} exited {proc.returncode}: "
+              f"{stderr[-3000:]}")
+        payload = json.loads(lines[-1])
+        check(not payload["foreign"], f"variants child {setting} loaded "
+                                      f"{payload['foreign']}")
+        want = {r.id for r in table.values() if r.setting == setting}
+        check(set(payload["results"]) == want,
+              f"variants child {setting} ran {sorted(payload['results'])}")
+        results.update(payload["results"])
+    total = dict.fromkeys(vc.KERNELS, 0)
+    by_group: dict = {}
+    for row in table.values():
+        res = results[row.id]
+        bad = vc.problem(row, res, results)
+        check(bad is None, f"variant {row.id}: {bad}")
+        for k in total:
+            total[k] += res["launches"][k]
+        group = by_group.setdefault(row.group, [0, 0.0])
+        group[0] += 1
+        group[1] += res["seconds"]
+        launched = ", ".join(f"{k} {v}" for k, v in res["launches"].items()
+                             if v)
+        print(f"[variants] {row.id} ({row.mode or 'RepeatFiller'}, "
+              f"{row.setting}): {vc.held_to(row)}; launches "
+              f"{launched or 'none'}; {res['seconds']:.3f} s")
+    print(f"[variants] {len(table)} rows, every one what it is held to with "
+          f"the launches it must make; launches {total}; rows and seconds by "
+          f"group: " + ", ".join(f"{g} {n} in {secs:.3f} s"
+                                 for g, (n, secs) in by_group.items())
+          + "; children's wall seconds: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in child_secs.items()))
+    return total
+
+
 def phase_dryrun(dev) -> dict:
     """dryrun_multidevice on [cuda:0] * 4; returns its launches."""
     import torch
@@ -1918,17 +2041,19 @@ def main() -> int:
         dist_launches = clocked(phase_distributed, tmp, cleaner)
         k1_prof = clocked(phase_profile, tmp, chr1)
         bench = clocked(phase_bench, tmp)
+        variants = clocked(phase_variants, tmp)
     dry = clocked(phase_dryrun, dev)
     entry["max_abs_err"] = max(worst, entry["max_abs_err"])
     entry["launches"] += (k1_fc + k1_prof + sharded[KERNEL]
                           + dist_launches[KERNEL] + dry[KERNEL]
-                          + goldens[KERNEL] + bench[KERNEL])
+                          + goldens[KERNEL] + bench[KERNEL]
+                          + variants[KERNEL])
     k2_entry = {"name": K2, "route": "cuda",
                 "source": "genomealignmenttools_tpu_torch/csrc/combine.cu",
                 "replaces": "genomealignmenttools_tpu/ops/pallas_combine.py:112",
                 "launches": (resident["launches"] + k2_launches + sharded[K2]
                              + dist_launches[K2] + dry[K2] + goldens[K2]
-                             + bench[K2]),
+                             + bench[K2] + variants[K2]),
                 "max_abs_err": max(worst_k2, resident["max_abs_err"]),
                 **{k: resident[k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}}
@@ -1942,7 +2067,7 @@ def main() -> int:
             "replaces": "genomealignmenttools_tpu/ops/pallas_combine.py:112 "
                         "with the decode of ops/pair_rescore.py:757-759",
             "launches": (res["launches"] + format_launches[key]
-                         + goldens[key] + bench[key]),
+                         + goldens[key] + bench[key] + variants[key]),
             "max_abs_err": max(worst_formats[kind], res["max_abs_err"]),
             **{k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}})
@@ -1950,7 +2075,7 @@ def main() -> int:
                 "source": "genomealignmenttools_tpu_torch/csrc/band.cu",
                 "replaces": "genomealignmenttools_tpu/ops/pallas_band.py:63",
                 "launches": (rf["launches"] + dry[K3] + goldens[K3]
-                             + bench[K3]),
+                             + bench[K3] + variants[K3]),
                 "max_abs_err": max(worst_k3, rf["max_abs_err"]),
                 **{k: rf[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}}
@@ -1971,4 +2096,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--variants-child"]:
+        sys.exit(variants_child(*sys.argv[2:6]))
     sys.exit(main())

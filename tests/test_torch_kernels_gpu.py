@@ -216,14 +216,16 @@ def _tiles_against_plain(tiles, s, bias, flags, start_idx, end_idx, tweak):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("tweak", [None, 7])
-@pytest.mark.parametrize("chunk", [128, 130])
+@pytest.mark.parametrize("chunk", [2, 6, 128, 130, 258])
 @pytest.mark.parametrize("name", ["edge", "ragged", "random"])
 def test_pair_combine_tiles_kernel_matches_plain(cuda_device, name, chunk,
                                                  tweak):
-    """The tile entry at the default width (16-byte loads) and at one that
-    is not a multiple of 16 (a row a thread), with and without a tweak, on
-    int8 rows whose sums are the cases' s."""
+    """The tile entry at the default width (16-byte loads) and at the
+    reference's other widths, none a multiple of 16 (a row a thread), with
+    and without a tweak, on int8 rows whose sums are the cases' s, clipped
+    to what `chunk` int8 bytes hold (a no-op from 128 bytes on)."""
     s, bias, flags, start_idx, end_idx, _ = _combine_inputs(name)
+    s = np.clip(s, -128 * chunk, 127 * chunk).astype(s.dtype)
     tiles = score_tiles(np.random.default_rng(chunk), s, chunk)
     card = [torch.from_numpy(a).to(cuda_device)
             for a in (tiles, s, bias, flags, start_idx, end_idx)]
@@ -286,14 +288,14 @@ def _format_against_plain(kind, tiles, s8, bias, flags, start_idx, end_idx,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("tweak", [None, 7])
-@pytest.mark.parametrize("chunk", [128, 130])
+@pytest.mark.parametrize("chunk", [2, 6, 128, 130, 258])
 @pytest.mark.parametrize("kind", ["code", "score4"])
 @pytest.mark.parametrize("name", ["edge", "ragged", "random"])
 def test_pair_combine_format_kernel_matches_plain(cuda_device, name, kind,
                                                   chunk, tweak):
-    """Combined-code rows of 128 bytes (16-byte loads) and 130 (a row a
-    thread), 4-bit rows of 64 bytes (16-byte loads) and 65 (odd: byte
-    loads), with and without a tweak."""
+    """Combined-code rows of 128 bytes (16-byte loads) and of 2, 6, 130 and
+    258 (a row a thread), 4-bit rows of 64 bytes (16-byte loads) and of 1, 3,
+    65 and 129 (odd: byte loads), with and without a tweak."""
     _, bias, flags, start_idx, end_idx, m = _combine_inputs(name)
     codes = code_tiles(np.random.default_rng(chunk), bias.shape[0], chunk)
     codes[m:] = 24

@@ -9,11 +9,14 @@ reference in tests/test_torch_gap_fill.py); scoreChain with -profile must
 also write its trace.  The commands that touch no device run in the port
 too: their outputs are byte-compared with the reference CLI's, computed in
 the test process.  A static case holds that no file of the port names the
-JAX package in an import.
+JAX package in an import, nor does chip_smoke.py or a case table it
+reads; chip_smoke.py's [variants] child runs here on the CPU without jax.
 """
 
 import contextlib
+import hashlib
 import io
+import json
 import os
 import re
 import subprocess
@@ -238,12 +241,16 @@ def test_command_table_is_the_reference_cli_s():
 
 
 def test_no_file_of_the_port_imports_the_jax_package():
-    """Static: no file under genomealignmenttools_tpu_torch/ and not
-    chip_smoke.py imports jax or genomealignmenttools_tpu (the name followed
-    by `.` or a space; genomealignmenttools_tpu_torch is the port)."""
+    """Static: no file under genomealignmenttools_tpu_torch/, not
+    chip_smoke.py and not the case tables it reads (tests/golden_cases.py,
+    variant_cases.py) imports jax or genomealignmenttools_tpu (the name
+    followed by `.` or a space; genomealignmenttools_tpu_torch is the
+    port)."""
     pat = re.compile(r"^\s*(from|import)\s+(genomealignmenttools_tpu|jax|"
                      r"jaxlib)(\.|\s|$)", re.M)
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "tests", n) for n in ("golden_cases.py",
+                                                 "variant_cases.py")]
     for root, _, names in os.walk(os.path.join(
             REPO, "genomealignmenttools_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -255,3 +262,27 @@ def test_no_file_of_the_port_imports_the_jax_package():
         hits += [(os.path.relpath(path, REPO), m.group(0).strip())
                  for m in pat.finditer(text)]
     assert not hits
+
+
+def test_variants_child_runs_without_jax(tmp_path):
+    """chip_smoke.py's [variants] children run variant_cases.run_child in a
+    fresh interpreter: here on the CPU, the GAT_NATIVE=0 setting's
+    scoreChain rows, which must give the golden and load neither jax nor
+    the JAX package."""
+    code = ("import json, sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
+            "import variant_cases as vc; "
+            "print(json.dumps(vc.run_child('native0', '', '', sys.argv[3], "
+            "'cpu', ['native0-scoreChain-window', "
+            "'native0-scoreChain-pair'])))")
+    res = subprocess.run(
+        [sys.executable, "-c", code, os.path.join(REPO, "tests"), REPO,
+         str(tmp_path)], env={**hermetic_cpu_env(), "GAT_NATIVE": "0"},
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    payload = json.loads(res.stdout.strip().splitlines()[-1])
+    assert payload["foreign"] == []
+    assert len(payload["results"]) == 2
+    with open(os.path.join(REPO, "tests", "golden",
+                           "scoreChain.loose.chain"), "rb") as fh:
+        want = hashlib.sha256(fh.read()).hexdigest()
+    assert all(r["sha256"] == [want] for r in payload["results"].values())
