@@ -144,15 +144,21 @@ non-zero:
               scorer_factory, in window mode and each pair tile format,
               against the goldens; chainNet -rescore and chainCleaner at
               GAT_PAIR_CHUNK 2, 6, 130 and 258 in each format (4-bit rows of
-              1, 3, 65 and 129 bytes); scoreChain, chainNet -rescore and
+              1, 3, 65 and 129 bytes), every K2 launch there held to its
+              plain version on the tiles it scored, whose width is checked;
+              scoreChain, chainNet -rescore and
               chainCleaner under GAT_NATIVE=0 (window, int8 pair);
               GAT_COMBINE=auto (no K2 on a chain set's first call, one on
-              the repeat) and =host in each format, and the int32 overflow
+              the repeat) and =host in each format, against the host-native
+              scores and scoreChain's golden, and the int32 overflow
               fallback (PERF["combine_overflow"] + 1), against the
               host-native scores; RepeatFiller --refQuirks batched, with
               GAT_RF_BATCH=0 (one K3 launch a gap that gives the band DP
-              work) and with GAT_HSP_NATIVE=0, against the golden, and
-              GAT_RF_BATCH=0 on the 24 gaps against the 1-thread run.  The
+              work, each held to K3's plain version) and with
+              GAT_HSP_NATIVE=0, against the golden; the 24-gap rows (both
+              thread counts, GAT_RF_BATCH=0 with its first launch held to
+              the plain version) against the host band batch
+              (GAT_BAND=host) on the same gaps.  The
               rows of GAT_THREADS=1, =8 and GAT_NATIVE=0 run in one child
               process a setting (python3 chip_smoke.py --variants-child
               SETTING LITE_DIR RF_DIR OUT, one JSON line of hashes and
@@ -573,25 +579,6 @@ def phase_kernel_k2(dev) -> tuple[int, dict]:
     return worst, by_kind
 
 
-@contextlib.contextmanager
-def environ(env: dict):
-    """Set each name of env for the block (None: unset it), then restore."""
-    saved = {k: os.environ.get(k) for k in env}
-    for k, v in env.items():
-        if v is None:
-            os.environ.pop(k, None)
-        else:
-            os.environ[k] = v
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
-
 def run_cli(args: list[str], env: dict | None = None) -> dict:
     """One port CLI run on the card, with `env` set for it; returns its
     launch counts (set to 0 just before, read just after)."""
@@ -599,7 +586,7 @@ def run_cli(args: list[str], env: dict | None = None) -> dict:
 
     from genomealignmenttools_tpu_torch.cli.main import main
     from genomealignmenttools_tpu_torch.device import LAUNCHES, perf_reset
-    with environ(env or {}):
+    with golden_cases().environ(env or {}):
         perf_reset()
         rc = main(args + ["-device=cuda"])
         torch.cuda.synchronize()
@@ -611,7 +598,8 @@ def run_cli(args: list[str], env: dict | None = None) -> dict:
 def golden_cases():
     """tests/golden_cases.py: the twins' case table and the scoring modes'
     environments (MODES); it imports only the standard library."""
-    sys.path.insert(0, os.path.join(REPO, "tests"))
+    if os.path.join(REPO, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(REPO, "tests"))
     import golden_cases as gc
     return gc
 
@@ -1143,7 +1131,7 @@ def resident_format(kind: str, chains, scheme, gap_calc, t_gen, q_gen, dev,
     from genomealignmenttools_tpu_torch.utils.profiling import (phase_acc_start,
                                                          phase_acc_stop)
     key = pc.LAUNCH_KEY[kind]
-    with environ({"GAT_PAIR_TILES": kind}):
+    with golden_cases().environ({"GAT_PAIR_TILES": kind}):
         scorer = TorchChainScorer(scheme, gap_calc, t_gen, q_gen, device=dev,
                                   mode="pair")
     check(scorer._dev.kind == kind, f"GAT_PAIR_TILES={kind} gave "
@@ -1386,7 +1374,7 @@ def host_cli(args: list[str]) -> float:
     none.  Must launch no kernel; returns its wall seconds."""
     from genomealignmenttools_tpu_torch.cli.main import main
     from genomealignmenttools_tpu_torch.device import LAUNCHES, perf_reset
-    with environ(HOST_ENV):
+    with golden_cases().environ(HOST_ENV):
         perf_reset()
         t0 = time.monotonic()
         rc = main(args)
@@ -1923,7 +1911,11 @@ def phase_variants(tmp: str) -> dict:
     setting that needs a fresh process (GAT_THREADS=1, =8, GAT_NATIVE=0) in
     one child each (--variants-child), side by side, and the others in this
     process meanwhile; each row byte-identical to what it is held to and
-    launching what it must.  Returns the launches of each kernel."""
+    launching what it must, and in the rows of other pair widths and of the
+    per-gap band path each launch (the first of the 24-gap row) held to its
+    kernel's plain version on the same inputs, at the tile width the row
+    sets.  Returns the launches of each kernel and the largest difference
+    from the plain version of each kernel held to it."""
     vc = variant_cases()
     root = os.path.join(tmp, "variants")
     lite_dir = os.path.join(tmp, "goldens", "lite")    # built by [goldens]
@@ -1964,6 +1956,7 @@ def phase_variants(tmp: str) -> dict:
               f"variants child {setting} ran {sorted(payload['results'])}")
         results.update(payload["results"])
     total = dict.fromkeys(vc.KERNELS, 0)
+    worst: dict = {}
     by_group: dict = {}
     for row in table.values():
         res = results[row.id]
@@ -1976,16 +1969,26 @@ def phase_variants(tmp: str) -> dict:
         group[1] += res["seconds"]
         launched = ", ".join(f"{k} {v}" for k, v in res["launches"].items()
                              if v)
+        held = ""
+        if row.checked:
+            c = res["checks"]
+            worst[c["kernel"]] = max(worst.get(c["kernel"], 0),
+                                     c["max_abs_err"])
+            held = (f"; {c['calls']} launches of {c['kernel']} == plain "
+                    f"(max abs err {c['max_abs_err']})" + (
+                        f" on tiles of {c['widths'][0]} bytes"
+                        if c["widths"] else ""))
         print(f"[variants] {row.id} ({row.mode or 'RepeatFiller'}, "
               f"{row.setting}): {vc.held_to(row)}; launches "
-              f"{launched or 'none'}; {res['seconds']:.3f} s")
+              f"{launched or 'none'}{held}; {res['seconds']:.3f} s")
     print(f"[variants] {len(table)} rows, every one what it is held to with "
           f"the launches it must make; launches {total}; rows and seconds by "
           f"group: " + ", ".join(f"{g} {n} in {secs:.3f} s"
                                  for g, (n, secs) in by_group.items())
           + "; children's wall seconds: " + ", ".join(
-              f"{k} {v:.1f}" for k, v in child_secs.items()))
-    return total
+              f"{k} {v:.1f}" for k, v in child_secs.items())
+          + f"; held to plain, max abs err {worst}")
+    return total, worst
 
 
 def phase_dryrun(dev) -> dict:
@@ -2041,7 +2044,7 @@ def main() -> int:
         dist_launches = clocked(phase_distributed, tmp, cleaner)
         k1_prof = clocked(phase_profile, tmp, chr1)
         bench = clocked(phase_bench, tmp)
-        variants = clocked(phase_variants, tmp)
+        variants, variants_err = clocked(phase_variants, tmp)
     dry = clocked(phase_dryrun, dev)
     entry["max_abs_err"] = max(worst, entry["max_abs_err"])
     entry["launches"] += (k1_fc + k1_prof + sharded[KERNEL]
@@ -2054,7 +2057,8 @@ def main() -> int:
                 "launches": (resident["launches"] + k2_launches + sharded[K2]
                              + dist_launches[K2] + dry[K2] + goldens[K2]
                              + bench[K2] + variants[K2]),
-                "max_abs_err": max(worst_k2, resident["max_abs_err"]),
+                "max_abs_err": max(worst_k2, resident["max_abs_err"],
+                                   variants_err.get(K2, 0)),
                 **{k: resident[k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}}
     from genomealignmenttools_tpu_torch.ops.pair_combine import LAUNCH_KEY
@@ -2068,7 +2072,8 @@ def main() -> int:
                         "with the decode of ops/pair_rescore.py:757-759",
             "launches": (res["launches"] + format_launches[key]
                          + goldens[key] + bench[key] + variants[key]),
-            "max_abs_err": max(worst_formats[kind], res["max_abs_err"]),
+            "max_abs_err": max(worst_formats[kind], res["max_abs_err"],
+                               variants_err.get(key, 0)),
             **{k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}})
     k3_entry = {"name": K3, "route": "cuda",
@@ -2076,7 +2081,8 @@ def main() -> int:
                 "replaces": "genomealignmenttools_tpu/ops/pallas_band.py:63",
                 "launches": (rf["launches"] + dry[K3] + goldens[K3]
                              + bench[K3] + variants[K3]),
-                "max_abs_err": max(worst_k3, rf["max_abs_err"]),
+                "max_abs_err": max(worst_k3, rf["max_abs_err"],
+                                   variants_err.get(K3, 0)),
                 **{k: rf[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}}
     foreign = sorted(m for m in sys.modules

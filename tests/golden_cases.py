@@ -16,6 +16,7 @@ builders import the port's formats and tests/make_planted.py when called.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -36,6 +37,25 @@ MODES = {
     "pair-score4": {"GAT_RESCORE": "pair", "GAT_COMBINE": "device",
                     "GAT_PAIR_TILES": "score4"},
 }
+
+@contextlib.contextmanager
+def environ(env: dict):
+    """Set each name of env for the block (None: unset it), then restore."""
+    saved = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
 
 def set_mode(monkeypatch, mode: str, env: dict | None = None) -> None:
     """Set a mode's environment, and `env` on top, for one test."""

@@ -34,6 +34,7 @@ from genomealignmenttools_tpu_torch.ops import pair_rescore as port_pair
 from genomealignmenttools_tpu_torch.ops.rescore import TorchChainScorer
 from test_torch_pair_combine import _case
 from test_torch_rescore import _random_chains
+import variant_cases as vc
 
 CPU = "cpu"
 
@@ -131,18 +132,8 @@ def test_pack_and_meta_are_cached_and_padded(setup, chain_sets):
 def _huge_gap_calc(tmp_path):
     """The loose table with every cost times 10^6: a chain with a few gaps
     passes 2^31, the reach of the device combine's int32 scans."""
-    path = tmp_path / "huge.gap"
-    pos = "1 2 3 11 111 2111 12111 32111 72111 152111 252111"
-    loose = {"qGap": [325, 360, 400, 450, 600, 1100, 3600, 7600, 15600,
-                      31600, 56600],
-             "bothGap": [625, 660, 700, 750, 900, 1400, 4000, 8000, 16000,
-                         32000, 57000]}
-    rows = [f"{k} " + " ".join(str(v * 1000000) for v in loose[src])
-            for k, src in (("qGap", "qGap"), ("tGap", "qGap"),
-                           ("bothGap", "bothGap"))]
-    path.write_text("tableSize 11\nsmallSize 111\nposition " + pos + "\n"
-                    + "\n".join(rows) + "\n")
-    return gap_calc_from_file(str(path))
+    return gap_calc_from_file(vc.write_huge_gap_calc(str(tmp_path
+                                                         / "huge.gap")))
 
 
 def test_overflow_takes_host_combine(setup, chain_sets, tmp_path,

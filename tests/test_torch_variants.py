@@ -33,8 +33,9 @@ NEW = [rid for rid, row in TABLE.items() if row.twin == vc.NEW_TWIN]
 
 # the names the port reads that pick no path of the card, and why
 NO_CARD_PATH = {
-    "GAT_BAND": "only `host` (or auto): the host band batch, the oracle of "
-                "chip_smoke's gap phases; auto is the card's K3 path",
+    "GAT_BAND": "only `host` (or auto): the host band batch, the base of "
+                "the 24-gap rows and the oracle of chip_smoke's gap phases; "
+                "auto is the card's K3 path",
     "GAT_BAND_NATIVE": "read by the host band batch alone (GAT_BAND=host): "
                        "its native C++ or numpy band_ext",
     "GAT_NATIVE_SO": "loads another build of the host library (the "
@@ -66,7 +67,8 @@ def test_every_environment_name_is_a_variant_or_picks_no_card_path():
     names = names_read_from_environment()
     assert {"GAT_THREADS", "GAT_NATIVE", "GAT_PAIR_CHUNK", "GAT_COMBINE",
             "GAT_RF_BATCH", "GAT_HSP_NATIVE", "GAT_RESCORE"} <= names
-    covered = {k for row in TABLE.values() for k in row.env}
+    covered = {k for row in TABLE.values() if row.held[0] != "base"
+               for k in row.env}
     covered |= {k for env in vc.SETTINGS.values() for k in env}
     covered |= {k for env in gc.MODES.values() for k in env}
     covered |= {k for _, env, _ in gc.scoring_cases("").values() for k in env}
@@ -112,8 +114,23 @@ def test_the_table_holds_every_variant():
         "GAT_HSP_NATIVE": "0"}
     for row in TABLE.values():
         assert set(row.launches) <= set(vc.KERNELS), row.id
-        if row.held[0] == "row" and row.held[1] is not None:
+        if row.held[0] == "row":
             assert len(TABLE[row.held[1]].outputs) == len(row.outputs)
+        if row.group == "widths":
+            chunk = int(row.env["GAT_PAIR_CHUNK"])
+            assert row.checked == (vc.K2_OF[row.mode], chunk // 2 if
+                                   row.mode == "pair-score4" else chunk,
+                                   None), row.id
+    # the 24-gap rows are held to the host band batch, which launches
+    # nothing; every per-gap row holds its K3 launches to the plain version
+    base = TABLE["host-RepeatFiller-rf24"]
+    assert base.env == {"GAT_BAND": "host"} and base.launches == {}
+    assert {r.id for r in TABLE.values() if r.held == ("row", base.id)} == {
+        "threads1-RepeatFiller-rf24", "threads8-RepeatFiller-rf24",
+        "band-RepeatFiller-per_gap-rf24"}
+    assert {r.id for r in TABLE.values() if r.checked and
+            r.checked[0] == vc.K3} == {"band-RepeatFiller-per_gap",
+                                       "band-RepeatFiller-per_gap-rf24"}
 
 
 def test_random_chains_are_the_older_test_s():
@@ -126,22 +143,6 @@ def test_random_chains_are_the_older_test_s():
         assert np.array_equal(a.blocks, b.blocks)
         assert (a.t_name, a.q_name, a.q_strand, a.t_size, a.q_size, a.id) == \
             (b.t_name, b.q_name, b.q_strand, b.t_size, b.q_size, b.id)
-
-
-def test_huge_gap_calc_is_the_older_test_s(tmp_path):
-    """variant_cases' copy of test_torch_pair_rescore._huge_gap_calc writes
-    the same file and gives the same costs."""
-    from test_torch_pair_rescore import _huge_gap_calc
-
-    from genomealignmenttools_tpu_torch.formats.gapcalc import \
-        gap_calc_from_file
-    (tmp_path / "old").mkdir()
-    theirs = _huge_gap_calc(tmp_path / "old")
-    ours = gap_calc_from_file(vc.write_huge_gap_calc(str(tmp_path / "h.gap")))
-    assert (tmp_path / "h.gap").read_text() == \
-        (tmp_path / "old" / "huge.gap").read_text()
-    for dq, dt in ((1, 0), (0, 50), (5000, 7), (300000, 300000)):
-        assert ours.cost(dq, dt) == theirs.cost(dq, dt)
 
 
 @pytest.fixture(scope="module")

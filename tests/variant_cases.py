@@ -12,7 +12,9 @@ row on the card (-device=cuda).  Each row gives the call (the port's CLI or
 an engine or scorer entry point), its environment (a mode of
 golden_cases.MODES and names on top), what its outputs are held to (goldens,
 C hashes of tests/golden/chr1_lite.json, another row's bytes, or the
-host-native scores) and the kernel launches it must make.
+host-native scores) and the kernel launches it must make; the rows of
+other pair widths and of the per-gap band path also hold each launch of
+their kernel to its plain version on the same inputs (`checked`).
 
 Rows whose setting is not "main" run in a fresh interpreter with the
 setting's environment, one per setting (`run_child`): the native library
@@ -53,6 +55,9 @@ PAIR_CHUNKS = ("2", "6", "130", "258")
 # GAT_RF_BATCH=0: 2 of the 14 gaps of tests/fixtures/repeatfiller_input.chain
 # and every gap of build_repeatfiller_workload(n_gaps=24)
 RF_GAPS_WITH_WORK = {"fixtures": 2, "rf24": 24}
+# the launches of the 24-gap per-gap row held to K3's plain version, whose
+# column loop of small torch ops is slow (about 1.5 s a gap on a CPU)
+RF24_HELD_TO_PLAIN = 1
 
 # the CPU twins of the rows that older tests hold
 _LITE = "test_torch_goldens_lite.py::"
@@ -75,6 +80,10 @@ class Row(NamedTuple):
     launches: dict     # kernel -> exact count or "+" (one or more); every
     #                    kernel not named must not launch
     twin: str          # the CPU test that holds the row
+    checked: tuple = ()  # (kernel, tile width in bytes or None, launches
+    #                      or None for all): each launch of the kernel in
+    #                      the row is held to its plain version on the
+    #                      same inputs (KernelCheck)
 
 
 def _scoring_launches(mode: str) -> dict:
@@ -92,28 +101,17 @@ def _lite_argv(tool: str, m: dict, o) -> tuple[list, list]:
     return gc.lite_cases(m, o(""))[case]
 
 
+# the case of golden_cases.scoring_cases that runs each rescoring tool on
+# the fixtures with its plain flags
+FIXTURE_CASE = {"scoreChain": "score_chain_parity-loose",
+                "chainNet": "chain_net_parity-rescore",
+                "chainCleaner": "chain_cleaner_parity-internal_netting"}
+
+
 def _fixture_argv(tool: str, o) -> tuple[list, list]:
     """(argv, [(output, golden)]) of a rescoring tool on the fixtures."""
-    f = lambda n: os.path.join(FIX, n)  # noqa: E731
-    g = lambda n: os.path.join(GOLD, n)  # noqa: E731
-    if tool == "scoreChain":
-        return (["scoreChain", f("synthetic.chain"), f("target.2bit"),
-                 f("query.2bit"), o("s.chain"), "-linearGap=loose"],
-                [(o("s.chain"), g("scoreChain.loose.chain"))])
-    if tool == "chainNet":
-        return (["chainNet", f("synthetic.scored.sorted.chain"),
-                 f("target.chrom.sizes"), f("query.chrom.sizes"), o("t.net"),
-                 o("q.net"), "-rescore", "-tNibDir=" + f("target.2bit"),
-                 "-qNibDir=" + f("query.2bit"), "-linearGap=loose"],
-                [(o("t.net"), g("chainNetRescore.target.net")),
-                 (o("q.net"), g("chainNetRescore.query.net"))])
-    return (["chainCleaner", f("synthetic.scored.sorted.chain"),
-             f("target.2bit"), f("query.2bit"), o("c.chain"), o("c.bed"),
-             "-tSizes=" + f("target.chrom.sizes"),
-             "-qSizes=" + f("query.chrom.sizes"), "-linearGap=loose",
-             "-verbose=0"],
-            [(o("c.chain"), g("chainCleaner.out.chain")),
-             (o("c.bed"), g("chainCleaner.removedSuspects.bed"))])
+    argv, _, outputs = gc.scoring_cases(o(""))[FIXTURE_CASE[tool]]
+    return argv, outputs
 
 
 PLACEHOLDER = {k: "" for k in ("chain", "t2bit", "q2bit", "t_sizes",
@@ -131,15 +129,26 @@ def rows(out: str, lite: dict | None = None, rf: dict | None = None
     table: dict = {}
 
     def add(rid, group, setting, mode, env, call, outputs, held, launches,
-            twin=NEW_TWIN):
+            twin=NEW_TWIN, checked=()):
         table[rid] = Row(rid, group, setting, mode, env, call, outputs, held,
-                         launches, twin)
+                         launches, twin, checked)
+
+    def rf24(rid):
+        return ("cli", ["RepeatFiller", "-c", rf["chain"], "-T2", rf["t2bit"],
+                        "-Q2", rf["q2bit"], "-o", at(rid)("rf.chain")])
 
     def at(rid):
         return lambda n: os.path.join(out, rid, n)
 
+    # the base of the 24-gap rows: the port's host band batch, which shares
+    # nothing with K3 or its plain version (band_batch._run_host)
+    base = "host-RepeatFiller-rf24"
+    add(base, "band", "main", None, {"GAT_BAND": "host"}, rf24(base),
+        [at(base)("rf.chain")],
+        ("base", "the host band batch (GAT_BAND=host)"), {})
     # threads: chr1-lite in window and int8 pair mode against the C hashes,
-    # RepeatFiller on 24 gaps against the 1-thread run, at 1 and 8 threads
+    # RepeatFiller on 24 gaps against the host band batch, at 1 and 8
+    # threads
     for n in (1, 8):
         setting = f"threads{n}"
         for tool in ("chainCleaner", "chainNet"):
@@ -156,12 +165,8 @@ def rows(out: str, lite: dict | None = None, rf: dict | None = None
                     ("hash", [k for _, k in outputs]),
                     _scoring_launches(mode), twin)
         rid = f"threads{n}-RepeatFiller-rf24"
-        add(rid, "threads", setting, None, {},
-            ("cli", ["RepeatFiller", "-c", rf["chain"], "-T2", rf["t2bit"],
-                     "-Q2", rf["q2bit"], "-o", at(rid)("rf.chain")]),
-            [at(rid)("rf.chain")],
-            ("row", "threads1-RepeatFiller-rf24") if n == 8 else
-            ("row", None), {K3: "+"},
+        add(rid, "threads", setting, None, {}, rf24(rid),
+            [at(rid)("rf.chain")], ("row", base), {K3: "+"},
             "test_torch_goldens_repeatfiller_threads.py::"
             "test_repeatfiller_thread_determinism")
     cc = [os.path.join(GOLD, n) for n in ("chainCleaner.out.chain",
@@ -192,16 +197,19 @@ def rows(out: str, lite: dict | None = None, rf: dict | None = None
             _RESCORE + "test_chain_net_rescore_batched_device"
             if old else NEW_TWIN)
     # widths: GAT_PAIR_CHUNK through the CLI in every pair format (4-bit
-    # rows of 1, 3, 65 and 129 bytes)
+    # rows of 1, 3, 65 and 129 bytes), every K2 launch held to its plain
+    # version on the tiles it scored, whose width is checked
     for mode in PAIR_MODES:
         for chunk in PAIR_CHUNKS:
+            width = int(chunk) // 2 if mode == "pair-score4" else int(chunk)
             for tool in ("chainNet", "chainCleaner"):
                 rid = f"width{chunk}-{tool}-{mode}"
                 argv, outputs = _fixture_argv(tool, at(rid))
                 add(rid, "widths", "main", mode, {"GAT_PAIR_CHUNK": chunk},
                     ("cli", argv), [p for p, _ in outputs],
                     ("golden", [g for _, g in outputs]),
-                    _scoring_launches(mode))
+                    _scoring_launches(mode), checked=(K2_OF[mode], width,
+                                                      None))
     # no native library: the numpy combine per chain, the numpy packers;
     # scoreChain's score_table declines, so it scores through score_chains
     # and launches what the other tools launch
@@ -213,12 +221,14 @@ def rows(out: str, lite: dict | None = None, rf: dict | None = None
                 [p for p, _ in outputs], ("golden", [g for _, g in outputs]),
                 _scoring_launches(mode))
     # the combine choice on a TorchChainScorer: auto takes the host combine
-    # on a chain set's first call and K2 on the repeat; host never takes K2
+    # on a chain set's first call and K2 on the repeat; host never takes K2;
+    # the global scores also those of scoreChain's golden
     for mode in PAIR_MODES:
         for combine in ("auto", "host"):
             rid = f"combine_{combine}-scorer-{mode}"
             add(rid, "combine", "main", mode, {"GAT_COMBINE": combine},
-                ("combine", combine), [], ("host-native", None),
+                ("combine", combine), [],
+                ("host-native", os.path.join(GOLD, "scoreChain.loose.chain")),
                 {K2_OF[mode]: 1} if combine == "auto" else {},
                 _PAIR + "test_score_chains_combine_choice"
                 if mode == "pair" else NEW_TWIN)
@@ -227,16 +237,18 @@ def rows(out: str, lite: dict | None = None, rf: dict | None = None
         ("overflow", at(rid)("huge.gap")), [], ("host-native", None), {},
         _PAIR + "test_overflow_takes_host_combine")
     # RepeatFiller's sequential per-gap path and python HSP scan beside the
-    # batched run, each held to the golden of the reference CLI
+    # batched run, each held to the golden of the reference CLI; each of the
+    # per-gap path's launches held to K3's plain version
     f = lambda n: os.path.join(FIX, n)  # noqa: E731
     batched = _GAPFILL + "test_repeat_filler_batched_band_path_matches_" \
                          "sequential"
-    for tag, env, launches, twin in (
-            ("batched", {}, {K3: "+"}, batched),
+    for tag, env, launches, twin, checked in (
+            ("batched", {}, {K3: "+"}, batched, ()),
             ("per_gap", {"GAT_RF_BATCH": "0"},
-             {K3: RF_GAPS_WITH_WORK["fixtures"]}, NEW_TWIN),
+             {K3: RF_GAPS_WITH_WORK["fixtures"]}, NEW_TWIN, (K3, None, None)),
             ("hsp_python", {"GAT_HSP_NATIVE": "0"}, {K3: "+"},
-             _GAPFILL + "test_repeat_filler_native_hsp_scan_matches_numpy")):
+             _GAPFILL + "test_repeat_filler_native_hsp_scan_matches_numpy",
+             ())):
         rid = f"band-RepeatFiller-{tag}"
         add(rid, "band", "main", None, env,
             ("cli", ["RepeatFiller", "-c", f("repeatfiller_input.chain"),
@@ -245,13 +257,12 @@ def rows(out: str, lite: dict | None = None, rf: dict | None = None
             [at(rid)("rf.chain")],
             ("golden", [os.path.join(
                 GOLD, "repeatfiller_reference_output.chain")]),
-            launches, twin)
+            launches, twin, checked)
     rid = "band-RepeatFiller-per_gap-rf24"
-    add(rid, "band", "main", None, {"GAT_RF_BATCH": "0"},
-        ("cli", ["RepeatFiller", "-c", rf["chain"], "-T2", rf["t2bit"], "-Q2",
-                 rf["q2bit"], "-o", at(rid)("rf.chain")]),
-        [at(rid)("rf.chain")], ("row", "threads1-RepeatFiller-rf24"),
-        {K3: RF_GAPS_WITH_WORK["rf24"]}, batched)
+    add(rid, "band", "main", None, {"GAT_RF_BATCH": "0"}, rf24(rid),
+        [at(rid)("rf.chain")], ("row", base),
+        {K3: RF_GAPS_WITH_WORK["rf24"]}, batched,
+        (K3, None, RF24_HELD_TO_PLAIN))
     return table
 
 
@@ -266,25 +277,6 @@ def workloads(lite_dir: str, rf_dir: str) -> tuple[dict, dict]:
 
 
 # --- running a row ------------------------------------------------------------
-
-@contextlib.contextmanager
-def environ(env: dict):
-    """Set each name of env for the block (None: unset it), then restore."""
-    saved = {k: os.environ.get(k) for k in env}
-    for k, v in env.items():
-        if v is None:
-            os.environ.pop(k, None)
-        else:
-            os.environ[k] = v
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
 
 class Launches:
     """The kernel launches of a run.  On the card, the port's LAUNCHES.  On
@@ -330,6 +322,63 @@ class Launches:
 
     def snap(self) -> dict:
         return {k: self.counts[k] for k in KERNELS}
+
+
+class KernelCheck:
+    """Holds the launches of one kernel in a run (the first `limit`, or
+    all) to the kernel's plain version on the same inputs, each right after
+    its launch, and notes the width of the tiles K2 scored.  It wraps the
+    call sites the engines reach (pair_rescore's pair_combine_scan_tiles,
+    band_batch.band_ext_batch); the plain versions count no launch.  On the
+    CPU, where the wrapper runs the plain version, the comparison is exact
+    by construction, but the widths are still those scored."""
+
+    def __init__(self, kernel: str, limit: int | None = None):
+        self.kernel, self.limit = kernel, limit
+        self.calls, self.widths, self.max_abs_err = 0, set(), 0
+        self.shapes_equal = True
+
+    def __enter__(self):
+        from genomealignmenttools_tpu_torch.ops import (band_batch,
+                                                        pair_combine,
+                                                        pair_rescore)
+        if self.kernel == K3:
+            module, name, plain = (band_batch, "band_ext_batch",
+                                   band_batch.band_ext_plain)
+        else:
+            module, name, plain = (pair_rescore, "pair_combine_scan_tiles",
+                                   pair_combine.pair_combine_scan_tiles_plain)
+        real = getattr(module, name)
+
+        def held(*args, **kw):
+            got = real(*args, **kw)
+            if self.limit is None or self.calls < self.limit:
+                self.calls += 1
+                if self.kernel != K3:
+                    self.widths.add(int(args[0].shape[1]))
+                self._compare(got, plain(*args, **kw))
+            return got
+        setattr(module, name, held)
+        self._undo = (module, name, real)
+        return self
+
+    def _compare(self, got, want) -> None:
+        import torch
+        for g, w in zip(got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                self.shapes_equal = False
+            elif g.numel():
+                d = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                self.max_abs_err = max(self.max_abs_err, d)
+
+    def __exit__(self, *exc):
+        setattr(*self._undo)
+
+    def result(self) -> dict:
+        return {"kernel": self.kernel, "calls": self.calls,
+                "widths": sorted(self.widths),
+                "shapes_equal": self.shapes_equal,
+                "max_abs_err": self.max_abs_err}
 
 
 def _delta(before: dict, after: dict) -> dict:
@@ -413,12 +462,16 @@ def _combine_choice(combine: str, mode: str, device: str,
     """One TorchChainScorer in pair mode scores the fixtures' chains twice:
     under auto the first call takes the host combine (no K2) and the repeat
     K2 once; under host neither call launches.  Both equal the host-native
-    scores."""
+    scores, whose global scores are those of scoreChain's golden."""
     from genomealignmenttools_tpu_torch.formats.chain import read_chains
     from genomealignmenttools_tpu_torch.ops.rescore import TorchChainScorer
     inputs = _scorer_inputs()
     chains = read_chains(os.path.join(FIX, "synthetic.chain"))
     want = TorchChainScorer(*inputs, mode="hostnative").score_chains(chains)
+    golden = read_chains(os.path.join(GOLD, "scoreChain.loose.chain"))
+    if [g for g, _, _ in want] != [c.score for c in golden]:
+        raise AssertionError("the host-native global scores differ from "
+                             "scoreChain.loose.chain's")
     scorer = TorchChainScorer(*inputs, device=device)
     key = K2_OF[mode]
     for call, expect in enumerate((0, 1 if combine == "auto" else 0)):
@@ -500,15 +553,19 @@ def run_row(row: Row, out: str, device: str, launches: Launches) -> dict:
     """Run one row on `device` ("cpu", or "cuda" on the card) inside
     `launches`, its mode's environment and its own set for the call.
     Returns {"sha256": [one per output], "launches": {kernel: count},
-    "seconds": wall seconds}.  A scorer row checks its scores itself and
-    raises on any difference."""
+    "seconds": wall seconds, "checks": KernelCheck's result or None}.  A
+    scorer row checks its scores itself and raises on any difference."""
     from genomealignmenttools_tpu_torch.utils.verbose import set_verbosity
     o = lambda n: os.path.join(out, row.id, n)  # noqa: E731
     os.makedirs(o(""), exist_ok=True)
     env = {**(gc.MODES[row.mode] if row.mode else {}), **row.env}
     kind, arg = row.call
     set_verbosity(0)
-    with environ(env):
+    check = None
+    if row.checked:
+        kernel, _, limit = row.checked
+        check = KernelCheck(kernel, limit)
+    with gc.environ(env), check or contextlib.nullcontext():
         before = launches.snap()
         t0 = time.monotonic()
         if kind == "cli":
@@ -527,7 +584,8 @@ def run_row(row: Row, out: str, device: str, launches: Launches) -> dict:
         secs = time.monotonic() - t0
         counts = _delta(before, launches.snap())
     return {"sha256": [gc.sha256(p) for p in row.outputs],
-            "launches": counts, "seconds": secs}
+            "launches": counts, "seconds": secs,
+            "checks": check.result() if check else None}
 
 
 def held_to(row: Row) -> str:
@@ -539,9 +597,11 @@ def held_to(row: Row) -> str:
     if what == "hash":
         return "the C hashes " + ", ".join(arg)
     if what == "row":
-        return (f"byte-identical to {arg}" if arg else
-                "the reference of the rows held to it")
-    return "the host-native scores"
+        return f"byte-identical to {arg}"
+    if what == "base":
+        return f"nothing: {arg}, the base of the rows held to it"
+    return "the host-native scores" + (
+        f" and {os.path.basename(arg)}'s global scores" if arg else "")
 
 
 def problem(row: Row, result: dict, results: dict) -> str | None:
@@ -555,10 +615,10 @@ def problem(row: Row, result: dict, results: dict) -> str | None:
     elif what == "hash":
         hashes = gc.lite_hashes()
         want = [hashes[k] for k in arg]
-    elif what == "row" and arg is not None:
+    elif what == "row":
         want = results[arg]["sha256"]
     else:
-        want = got
+        want = got          # a base, or a scorer row that checked itself
     if got != want:
         bad = [os.path.basename(p) for p, a, b in zip(row.outputs, got, want)
                if a != b]
@@ -569,6 +629,18 @@ def problem(row: Row, result: dict, results: dict) -> str | None:
             return (f"launched {k} {n} times, expected "
                     f"{'one or more' if expect == '+' else expect}: "
                     f"{result['launches']}")
+    if row.checked:
+        kernel, width, _ = row.checked
+        held = result["checks"]
+        if held["calls"] < 1:
+            return f"no launch of {kernel} was held to its plain version"
+        if not held["shapes_equal"] or held["max_abs_err"]:
+            return (f"{kernel} != its plain version: shapes equal "
+                    f"{held['shapes_equal']}, max abs err "
+                    f"{held['max_abs_err']}")
+        if width is not None and held["widths"] != [width]:
+            return (f"{kernel} scored tiles of {held['widths']} bytes, not "
+                    f"{width}")
     return None
 
 
