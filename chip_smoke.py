@@ -167,7 +167,27 @@ non-zero:
               the format's K2 entry and no other with the device combine,
               K3 in RepeatFiller) and nothing else.  One line per row:
               variant, mode, setting, what it is held to, launches, seconds.
-19. dryrun  - dryrun_multidevice([cuda:0] * 4): the sharded scorers, the
+19. sanitize - python -m genomealignmenttools_tpu_torch.sanitize cuda in
+              this process: K1, K2's four entries and K3 in both modes at
+              every instantiation on the edge cases of tests/rescore_cases.py,
+              combine_cases.py and band_cases.py under memcheck, racecheck,
+              synccheck and initcheck, one child process a tool, side by
+              side, each with PYTORCH_NO_CUDA_MEMORY_CACHING=1 and a copy of
+              the kernels built with -lineinfo; every launch held exactly to
+              its plain version (computed here meanwhile, with two helper
+              processes; K3's digests taken from [kernel K3]'s plain runs on
+              the same inputs); the memcheck
+              child also runs the fixtures' scoring tools in window mode and
+              each pair tile format, RepeatFiller and patchChain, each
+              byte-identical to tests/golden or the host band batch.
+              compute-sanitizer must be found; it runs the four tools where
+              it can attach to the card, and where it answers "Device not
+              supported" (a card reached through gVisor) the kernels' own checks
+              (csrc/check.cuh, the builtin checker, which always runs) carry
+              the verdict.  One line a tool: errors, launches, seconds; any
+              error, timeout or difference fails.  Its launches join the
+              kernels line.
+20. dryrun  - dryrun_multidevice([cuda:0] * 4): the sharded scorers, the
               sharded cleaner, chainNet -rescore and RepeatFiller on the
               fixtures, and the band DP split across devices, all exact.
 
@@ -842,7 +862,8 @@ def main_path_chunks(meta: dict, dev):
 
     from genomealignmenttools_tpu_torch.device.genome import open_genome
     from genomealignmenttools_tpu_torch.native.chain_io import parse_chain_table
-    from genomealignmenttools_tpu_torch.ops.window_rescore import chunk_blocks
+    from genomealignmenttools_tpu_torch.ops.window_rescore import (
+        chunk_blocks, upload_codes)
     with open(meta["chain"], "rb") as f:
         table = parse_chain_table(f.read())
     (t_ids, t_names), (q_ids, q_names) = table.names_factorized()
@@ -857,9 +878,11 @@ def main_path_chunks(meta: dict, dev):
                                  for r in rows])
         t_off, q_off, length, _ = chunk_blocks(blocks)
         strand = chr(key[2])
-        jobs.append([torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
-            t_gen.codes(t_names[key[0]], "+"),
-            q_gen.codes(q_names[key[1]], strand), t_off, q_off, length)])
+        # genomes as TorchGenomeCache holds them: padded to 16 bytes
+        jobs.append([upload_codes(t_gen.codes(t_names[key[0]], "+"), dev),
+                     upload_codes(q_gen.codes(q_names[key[1]], strand), dev),
+                     *[torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                       for a in (t_off, q_off, length)]])
     return jobs
 
 
@@ -1287,9 +1310,11 @@ def phase_cleaner(tmp: str, n_scenarios: int = 2000,
     return counts["pair"][K2], w
 
 def k3_against_plain(args, mat, global_mode, gap_open, gap_extend,
-                     max_insert) -> tuple[int, "object"]:
+                     max_insert) -> tuple[int, "object", str]:
     """K3 == band_ext_plain on one set of card inputs; returns the max abs
-    difference over meta and moves, and K3's meta."""
+    difference over meta and moves, K3's meta and the digest of the plain
+    version's outputs (sanitize.digest)."""
+    from genomealignmenttools_tpu_torch.sanitize import digest
     import torch
 
     from genomealignmenttools_tpu_torch.ops import band_batch as bb
@@ -1300,13 +1325,13 @@ def k3_against_plain(args, mat, global_mode, gap_open, gap_extend,
     torch.cuda.synchronize()
     diff = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                for g, w in zip(got, want))
-    return diff, got[0]
+    return diff, got[0], digest(want)
 
 
-def phase_kernel_k3(dev) -> int:
+def phase_kernel_k3(dev) -> tuple[int, dict]:
     """Exact K3 == plain on the card on every case set, and BandExtBatch on
-    the card == numpy band_ext on a subset; returns the max abs
-    difference."""
+    the card == numpy band_ext on a subset; returns the max abs difference
+    and the plain version's digest of each set, by [sanitize]'s label."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from band_cases import (instantiation_cases, kernel_cases, outcome,
                             raw_inputs)
@@ -1316,12 +1341,12 @@ def phase_kernel_k3(dev) -> int:
     from genomealignmenttools_tpu_torch.ops import band_batch as bb
 
     cm = score_scheme_default().char_matrix()
-    worst, errs, n_oracle = 0, set(), 0
+    worst, errs, n_oracle, plain = 0, set(), 0, {}
     for label, g, gap_open, gap_extend, mi, probs in kernel_cases():
         batch = bb.BandExtBatch(g, cm, gap_open, gap_extend, mi, device=dev)
         args = raw_inputs(probs, dev)
-        diff, meta = k3_against_plain(args, batch.mat, g, gap_open,
-                                      gap_extend, mi)
+        diff, meta, plain[f"K3 {label}"] = k3_against_plain(
+            args, batch.mat, g, gap_open, gap_extend, mi)
         worst = max(worst, diff)
         check(diff == 0, f"K3 != plain on {label} (max {diff})")
         err = meta[:, 5].cpu()
@@ -1350,8 +1375,8 @@ def phase_kernel_k3(dev) -> int:
     seen = set()
     for label, g, gap_open, gap_extend, mi, probs in instantiation_cases():
         batch = bb.BandExtBatch(g, cm, gap_open, gap_extend, mi, device=dev)
-        diff, meta = k3_against_plain(raw_inputs(probs, dev), batch.mat, g,
-                                      gap_open, gap_extend, mi)
+        diff, meta, plain[f"K3 {label}"] = k3_against_plain(
+            raw_inputs(probs, dev), batch.mat, g, gap_open, gap_extend, mi)
         worst = max(worst, diff)
         check(diff == 0, f"K3 != plain on {label} (max {diff})")
         seen.add(bb.parent_layout(mi)[0])
@@ -1361,7 +1386,7 @@ def phase_kernel_k3(dev) -> int:
     check(seen == set(range(1, 9)), f"instantiations run: {sorted(seen)}")
     print(f"[kernel K3] BandExtBatch on the card == numpy band_ext on "
           f"{n_oracle} problems (tuples, AssertionError and IndexError)")
-    return worst
+    return worst, plain
 
 
 HOST_ENV = {"GAT_RESCORE": "hostnative", "GAT_BAND": "host"}
@@ -1991,6 +2016,52 @@ def phase_variants(tmp: str) -> dict:
     return total, worst
 
 
+def sanitizer_probe() -> subprocess.Popen:
+    """compute-sanitizer's memcheck on one CUDA allocation from torch:
+    whether it can attach to this card.  Raises where it is not found."""
+    from genomealignmenttools_tpu_torch import sanitize
+    exe = sanitize.find_compute_sanitizer()
+    return subprocess.Popen(
+        sanitize.sanitizer_command(exe, "memcheck", [
+            sys.executable, "-c",
+            "import torch; torch.zeros(1, device='cuda'); "
+            "torch.cuda.synchronize()"]),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def phase_sanitize(dev, k3_plain: dict) -> dict:
+    """The kernels under the four tools (sanitize.run_cuda): the builtin
+    checker always, compute-sanitizer too where it can attach to the card;
+    K3's launches held to the plain digests of [kernel K3] (the same
+    inputs).  Returns the launches of each kernel entry in the children."""
+    from genomealignmenttools_tpu_torch import sanitize
+    probe = sanitizer_probe()
+    try:
+        out = sanitize.run_cuda("builtin", device=str(dev),
+                                plain_known=k3_plain)
+        text = probe.communicate(timeout=300)[0]
+    finally:
+        if probe.poll() is None:
+            probe.kill()
+            probe.wait()
+    total = dict(out["launches"])
+    if sanitize.REFUSED in text:
+        print(f"[sanitize] compute-sanitizer ({sanitize.find_compute_sanitizer()}"
+              f"): \"{sanitize.REFUSED}\" on this card (reached through gVisor); "
+              f"the kernels' own checks above carry the verdict")
+    else:
+        check(probe.returncode == 0 and sanitize.parse_summary(text) == 0,
+              f"compute-sanitizer's probe failed:\n{text[-3000:]}")
+        nv = sanitize.run_cuda("compute-sanitizer", device=str(dev),
+                               plain_known=k3_plain)
+        for k, v in nv["launches"].items():
+            total[k] += v
+    print(f"[sanitize] {out['cases']} cases a tool, 0 errors under each of "
+          f"memcheck, racecheck, synccheck and initcheck, every launch equal "
+          f"to its plain version; launches {total}")
+    return total
+
+
 def phase_dryrun(dev) -> dict:
     """dryrun_multidevice on [cuda:0] * 4; returns its launches."""
     import torch
@@ -2028,7 +2099,7 @@ def main() -> int:
     v1_lib = clocked(phase_build)
     worst = clocked(phase_kernel, dev)
     worst_k2, worst_formats = clocked(phase_kernel_k2, dev)
-    worst_k3 = clocked(phase_kernel_k3, dev)
+    worst_k3, k3_plain = clocked(phase_kernel_k3, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # the phases of earlier slices first, so that their numbers are
         # taken as before: no profiler started, no other process on the card
@@ -2045,18 +2116,19 @@ def main() -> int:
         k1_prof = clocked(phase_profile, tmp, chr1)
         bench = clocked(phase_bench, tmp)
         variants, variants_err = clocked(phase_variants, tmp)
+    sanitized = clocked(phase_sanitize, dev, k3_plain)
     dry = clocked(phase_dryrun, dev)
     entry["max_abs_err"] = max(worst, entry["max_abs_err"])
     entry["launches"] += (k1_fc + k1_prof + sharded[KERNEL]
                           + dist_launches[KERNEL] + dry[KERNEL]
                           + goldens[KERNEL] + bench[KERNEL]
-                          + variants[KERNEL])
+                          + variants[KERNEL] + sanitized[KERNEL])
     k2_entry = {"name": K2, "route": "cuda",
                 "source": "genomealignmenttools_tpu_torch/csrc/combine.cu",
                 "replaces": "genomealignmenttools_tpu/ops/pallas_combine.py:112",
                 "launches": (resident["launches"] + k2_launches + sharded[K2]
                              + dist_launches[K2] + dry[K2] + goldens[K2]
-                             + bench[K2] + variants[K2]),
+                             + bench[K2] + variants[K2] + sanitized[K2]),
                 "max_abs_err": max(worst_k2, resident["max_abs_err"],
                                    variants_err.get(K2, 0)),
                 **{k: resident[k] for k in ("ms", "plain_ms", "bound_ms",
@@ -2071,7 +2143,8 @@ def main() -> int:
             "replaces": "genomealignmenttools_tpu/ops/pallas_combine.py:112 "
                         "with the decode of ops/pair_rescore.py:757-759",
             "launches": (res["launches"] + format_launches[key]
-                         + goldens[key] + bench[key] + variants[key]),
+                         + goldens[key] + bench[key] + variants[key]
+                         + sanitized[key]),
             "max_abs_err": max(worst_formats[kind], res["max_abs_err"],
                                variants_err.get(key, 0)),
             **{k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -2080,7 +2153,7 @@ def main() -> int:
                 "source": "genomealignmenttools_tpu_torch/csrc/band.cu",
                 "replaces": "genomealignmenttools_tpu/ops/pallas_band.py:63",
                 "launches": (rf["launches"] + dry[K3] + goldens[K3]
-                             + bench[K3] + variants[K3]),
+                             + bench[K3] + variants[K3] + sanitized[K3]),
                 "max_abs_err": max(worst_k3, rf["max_abs_err"],
                                    variants_err.get(K3, 0)),
                 **{k: rf[k] for k in ("ms", "plain_ms", "bound_ms",

@@ -10,11 +10,18 @@ one nvcc per source, all started together,
 
 and one more nvcc links the objects into one shared library with a plain C
 interface, build/libgat_torch_kernels.so.  No PyTorch header is included, so
-a build takes seconds.  The library is rebuilt when a source is newer than
-it.  A failed build raises; there is no fallback.  The build directory is
-`build/` inside this package (gitignored); the compilers' output (ptxas
-register and shared-memory counts) is kept beside the library in
-`build.log`.
+a build takes seconds.  The library is rebuilt when a source or header is
+newer than it.  A failed build raises; there is no fallback.  The build
+directory is `build/` inside this package (gitignored); the compilers'
+output (ptxas register and shared-memory counts) is kept beside the library
+in `build.log`.
+
+Two copies of the same sources serve sanitize.py, each in a directory of its
+own under build/, with the flags above plus
+    lineinfo   -lineinfo                (compute-sanitizer names source lines)
+    checked    -lineinfo -DGAT_CHECKED  (the kernels' own checks, check.cuh)
+`use_variant(name)` makes load_library() load one of them; it must come
+before the first load.  The library the port loads keeps its flags.
 """
 
 from __future__ import annotations
@@ -32,14 +39,38 @@ BUILD_DIR = os.path.join(_DIR, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libgat_torch_kernels.so")
 LOG_PATH = os.path.join(BUILD_DIR, "build.log")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# the extra nvcc flags of each copy of the kernels; "" is the port's own
+VARIANTS = {"": (), "lineinfo": ("-lineinfo",),
+            "checked": ("-lineinfo", "-DGAT_CHECKED")}
 
 _lib = None
+_variant = ""
 # seconds the last build in this process took (None: nothing was built)
 last_build_seconds: float | None = None
 
 
 def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
+
+
+def lib_path(variant: str = "") -> str:
+    """The library of a copy of the kernels (VARIANTS)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"no kernel build {variant!r}; one of {list(VARIANTS)}")
+    if not variant:
+        return LIB_PATH
+    return os.path.join(BUILD_DIR, variant, os.path.basename(LIB_PATH))
+
+
+def use_variant(variant: str) -> None:
+    """Make load_library() load the copy `variant` of the kernels; raises
+    once another copy is loaded in this process."""
+    global _variant
+    lib_path(variant)
+    if _lib is not None and variant != _variant:
+        raise RuntimeError(f"the kernel build {_variant or 'of the port'!r} "
+                           f"is already loaded")
+    _variant = variant
 
 
 def _nvcc() -> str:
@@ -53,23 +84,26 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> str:
-    """Compile every csrc/*.cu into LIB_PATH; returns the compilers' output."""
+def build(variant: str = "") -> str:
+    """Compile every csrc/*.cu into lib_path(variant); returns the
+    compilers' output."""
     global last_build_seconds
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {SRC_DIR}")
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = lib_path(variant)
+    out_dir = os.path.dirname(out)
+    os.makedirs(out_dir, exist_ok=True)
     nvcc, tag = _nvcc(), os.getpid()
     t0 = time.monotonic()
     objs, cmds = [], []
     for src in srcs:
         name = os.path.splitext(os.path.basename(src))[0]
-        objs.append(os.path.join(BUILD_DIR, f"{name}.{tag}.o"))
-        cmds.append([nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c",
-                     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", objs[-1],
-                     src])
-    tmp = f"{LIB_PATH}.{tag}.tmp"
+        objs.append(os.path.join(out_dir, f"{name}.{tag}.o"))
+        cmds.append([nvcc, *ARCH_FLAGS, "-std=c++17", "-O3",
+                     *VARIANTS[variant], "-c", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v", "-o", objs[-1], src])
+    tmp = f"{out}.{tag}.tmp"
     try:
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
@@ -82,12 +116,13 @@ def build() -> str:
                                  stderr=subprocess.STDOUT, text=True)
             results.append((cmd, res.stdout, res.returncode))
         log = "".join(" ".join(cmd) + "\n" + out for cmd, out, _ in results)
-        with open(LOG_PATH, "w") as f:
+        with open(os.path.join(out_dir, os.path.basename(LOG_PATH)),
+                  "w") as f:
             f.write(log)
         failed = [rc for _, _, rc in results if rc != 0]
         if failed:
             raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
-        os.replace(tmp, LIB_PATH)
+        os.replace(tmp, out)
     finally:
         for path in (*objs, tmp):
             if os.path.exists(path):
@@ -96,21 +131,24 @@ def build() -> str:
     return log
 
 
-def _stale() -> bool:
-    if not os.path.exists(LIB_PATH):
+def _stale(variant: str = "") -> bool:
+    path = lib_path(variant)
+    if not os.path.exists(path):
         return True
-    built = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(s) > built for s in sources())
+    built = os.path.getmtime(path)
+    return any(os.path.getmtime(s) > built
+               for s in glob.glob(os.path.join(SRC_DIR, "*.cu*")))
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built first if missing or older than a source."""
+    """The kernel library of the copy use_variant() chose (the port's own
+    unless named), built first if missing or older than a source."""
     global _lib
     if _lib is not None:
         return _lib
-    if _stale():
-        build()
-    lib = ctypes.CDLL(LIB_PATH)
+    if _stale(_variant):
+        build(_variant)
+    lib = ctypes.CDLL(lib_path(_variant))
     p = ctypes.c_void_p
     lib.gat_rescore_chunks.restype = ctypes.c_int
     lib.gat_rescore_chunks.argtypes = [
@@ -168,5 +206,15 @@ def load_library() -> ctypes.CDLL:
     lib.gat_band_parent_row_bytes.argtypes = [ctypes.c_int]
     lib.gat_cuda_error_string.restype = ctypes.c_char_p
     lib.gat_cuda_error_string.argtypes = [ctypes.c_int]
+    if _variant == "checked":
+        lib.gat_check_arm.restype = ctypes.c_int
+        lib.gat_check_arm.argtypes = [ctypes.c_int]
+        for name in ("gat_check_errors", "gat_check_launches"):
+            getattr(lib, name).restype = ctypes.c_ulonglong
+            getattr(lib, name).argtypes = []
+        lib.gat_check_reports.restype = ctypes.c_char_p
+        lib.gat_check_reports.argtypes = []
+        lib.gat_check_clear.restype = None
+        lib.gat_check_clear.argtypes = []
     _lib = lib
     return _lib

@@ -73,9 +73,12 @@
 //     a_pos * 32 + j / C.  Nothing is zeroed: band_ext's parent array reads 0
 //     where a column wrote nothing, and the traceback gets the same 0 from
 //     the column's own extent (col_top and n follow from its band centre), so
-//     the scratch is torch.empty and every parent byte is written at most
-//     once (128 bytes a column at max_insert 100, where the first version
-//     zeroed 201 and wrote 201).
+//     the scratch is torch.empty and every parent byte is written once (128
+//     bytes a column at max_insert 100, where the first version zeroed 201
+//     and wrote 201): each lane writes its word of every column the DP runs,
+//     0 where it holds no cell, since the traceback fetches whole rows (a
+//     lane that wrote only where it held cells left words that the fetch
+//     read unwritten: the builtin initcheck's report, sanitize.py).
 //   - The traceback fetches ahead: the warp loads the parent words and band
 //     centres of the next 32 rows in 33 coalesced loads into the shared
 //     memory the DP has left, and lane 0 walks them there; a step costs a
@@ -93,6 +96,8 @@
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "check.cuh"
 
 namespace {
 
@@ -140,13 +145,16 @@ band_ext_kernel(const uint8_t* __restrict__ a_codes,
   using Word = typename ParentWord<C>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int32_t s_mat[25];
-  if (threadIdx.x < 25) s_mat[threadIdx.x] = prm.mat[threadIdx.x];
-  __syncthreads();
+  if (threadIdx.x < 25) GAT_ST(&s_mat[threadIdx.x], prm.mat[threadIdx.x]);
+  GAT_SYNCTHREADS();
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int64_t p = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
-  if (p >= n_problems) return;  // no block-wide barrier follows
+  if (p >= n_problems) {  // no block-wide barrier follows
+    GAT_EXIT();
+    return;
+  }
 
   const int mi = prm.max_insert;
   const int mi1 = mi + 1;
@@ -170,19 +178,19 @@ band_ext_kernel(const uint8_t* __restrict__ a_codes,
   int32_t* prev_u = prev_m + stride;
   int32_t* prev_l = prev_u + stride;
   for (int k = lane; k < band_plus; k += 32) {  // band_ext.py:56-66
-    cur_m[k] = bad;
-    cur_u[k] = bad;
-    cur_l[k] = bad;
-    prev_m[k] = k == mid ? 0 : bad;
-    prev_u[k] = (k >= mid && k < mid + mi) ? -O - (k - mid) * E : bad;
-    prev_l[k] = bad;
+    GAT_ST(&cur_m[k], bad);
+    GAT_ST(&cur_u[k], bad);
+    GAT_ST(&cur_l[k], bad);
+    GAT_ST(&prev_m[k], k == mid ? 0 : bad);
+    GAT_ST(&prev_u[k], (k >= mid && k < mid + mi) ? -O - (k - mid) * E : bad);
+    GAT_ST(&prev_l[k], bad);
   }
-  __syncwarp();
+  GAT_SYNCWARP();
 
-  const int64_t a0 = a_off[p];
-  const int64_t b0 = b_off[p];
-  const int a_size = static_cast<int>(a_off[p + 1] - a0);
-  const int b_size = static_cast<int>(b_off[p + 1] - b0);
+  const int64_t a0 = GAT_LD(&a_off[p]);
+  const int64_t b0 = GAT_LD(&b_off[p]);
+  const int a_size = static_cast<int>(GAT_LD(&a_off[p + 1]) - a0);
+  const int b_size = static_cast<int>(GAT_LD(&b_off[p + 1]) - b0);
   const uint8_t* a = a_codes + a0;
   const uint8_t* b = b_codes + b0;
   Word* par = static_cast<Word*>(parents) + a0 * 32;
@@ -207,10 +215,11 @@ band_ext_kernel(const uint8_t* __restrict__ a_codes,
     }
     // the up state's seed above cell 0; no lane reads it back in this column
     const int32_t seed_u = a_pos < mi ? init_gap : bad;
-    if (lane == 0) cur_u[cur_off - 1] = seed_u;
+    if (lane == 0) GAT_ST(&cur_u[cur_off - 1], seed_u);
     if (a_pos < mi) init_gap -= E;
 
     int col_best = bad, col_idx = 0;
+    uint32_t word = 0;  // the lane's parent nibbles; 0 where it holds no cell
     ++columns;
     cells += max(n, 0);
     if (n > 0) {
@@ -218,8 +227,8 @@ band_ext_kernel(const uint8_t* __restrict__ a_codes,
       // (j >= n) is computed like the others from whatever the padded state
       // arrays hold and masked where it could be seen (m, the scan term,
       // the stores), so the column body has no branch.
-      const int32_t* mrow = s_mat + a[a_pos] * 5;
-      const int32_t seed_m = cur_m[cur_off - 1];  // from two columns back
+      const int32_t* mrow = s_mat + GAT_LD(&a[a_pos]) * 5;
+      const int32_t seed_m = GAT_LD(&cur_m[cur_off - 1]);  // two columns back
       const int live = n - j0;                    // cell c is on iff c < live
       // the neighbours at d .. d+C: the diagonal of cell c at d+c, its left
       // at d+c+1
@@ -228,20 +237,19 @@ band_ext_kernel(const uint8_t* __restrict__ a_codes,
       int32_t pm[C + 1], pl[C + 1];
 #pragma unroll
       for (int c = 0; c <= C; ++c) {
-        pm[c] = prev_m[d + c];
-        pl[c] = prev_l[d + c];
+        pm[c] = GAT_LD(&prev_m[d + c]);
+        pl[c] = GAT_LD(&prev_l[d + c]);
       }
       int32_t m[C], l[C], u[C], cand[C];
-      uint32_t word = 0;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        const int32_t pu = prev_u[d + c];
-        const unsigned bc = c < live ? b[col_top + j0 + c] : 4u;
+        const int32_t pu = GAT_LD(&prev_u[d + c]);
+        const unsigned bc = c < live ? GAT_LD(&b[col_top + j0 + c]) : 4u;
         // diagonal >= left > up: the diagonal where it is the maximum of
         // the three, else left where it is larger than up, else up (an off
         // cell's m is masked where it is used)
         const int32_t from = __vimax3_s32(pm[c], pl[c], pu);
-        m[c] = from + mrow[bc];
+        m[c] = from + GAT_LD(&mrow[bc]);
         const int code = pm[c] == from ? kMatch : pl[c] > pu ? kLeft : kUp;
         const int32_t ext = pl[c + 1] - E;
         const int32_t opn = pm[c + 1] - O;
@@ -252,6 +260,7 @@ band_ext_kernel(const uint8_t* __restrict__ a_codes,
       // cand[j] = m of the cell above (seed_m above cell 0); the up state is
       // the prefix max of cand[j] - O + j*E (cell 0 also takes seed_u - E),
       // minus j*E
+      GAT_COLLECTIVE(kFull);
       const int32_t m_above = __shfl_up_sync(kFull, m[C - 1], 1);
       int32_t run = kNeg;
 #pragma unroll
@@ -282,24 +291,27 @@ band_ext_kernel(const uint8_t* __restrict__ a_codes,
         const int32_t u_prev = c > 0 ? u[c - 1] : lane > 0 ? u_above : seed_u;
         if (u_prev - cand[c] >= E - O) word |= kUpExt << (4 * c);
         if (c < live) {
-          out_m[c] = m[c];
-          out_u[c] = u[c];
-          out_l[c] = l[c];
+          GAT_ST(&out_m[c], m[c]);
+          GAT_ST(&out_u[c], u[c]);
+          GAT_ST(&out_l[c], l[c]);
         }
         if (c < live && m[c] > lb) {
           lb = m[c];
           li = j0 + c;
         }
       }
-      if (live > 0) {
-        // the nibbles of off cells are never read: the traceback stops at n
-        par[static_cast<int64_t>(a_pos) * 32 + lane] = static_cast<Word>(word);
-      }
+      // the nibbles of off cells are never read: the traceback stops at n
+      if (live <= 0) word = 0;
       // the first maximum: the lowest lane that holds the warp's maximum
+      GAT_COLLECTIVE(kFull);
       col_best = __reduce_max_sync(kFull, lb);
       const unsigned holds = __ballot_sync(kFull, lb == col_best);
       col_idx = __shfl_sync(kFull, li, __ffs(holds) - 1);
     }
+    // every lane writes its word of every column the DP runs, so the
+    // traceback's fetch of a whole row reads no word that was never written
+    GAT_ST(&par[static_cast<int64_t>(a_pos) * 32 + lane],
+           static_cast<Word>(word));
 
     // band_ext.py:170-186, warp-uniform
     if (best < col_best) {
@@ -312,16 +324,16 @@ band_ext_kernel(const uint8_t* __restrict__ a_codes,
     } else {
       col_shift = 1;
     }
-    if (lane == 0) center[a_pos] = band_center;
+    if (lane == 0) GAT_ST(&center[a_pos], band_center);
     band_center += col_shift;
     int32_t* t;
     t = cur_m; cur_m = prev_m; prev_m = t;
     t = cur_u; cur_u = prev_u; prev_u = t;
     t = cur_l; cur_l = prev_l; prev_l = t;
-    __syncwarp();  // this column's cells, before the next column reads them
+    GAT_SYNCWARP();  // this column's cells, before the next column reads them
   }
   __threadfence_block();
-  __syncwarp();  // every lane's parents and lane 0's centres, for the fetch
+  GAT_SYNCWARP();  // every lane's parents and lane 0's centres, for the fetch
 
   // traceback (band_ext.py:188-236): the warp fetches kRows rows of parents
   // and centres into shared memory, lane 0 walks them
@@ -340,15 +352,18 @@ band_ext_kernel(const uint8_t* __restrict__ a_codes,
 #pragma unroll 8
       for (int k = 0; k < kRows; ++k) {
         if (top - k >= low) {
-          rows[k * 32 + lane] = par[static_cast<int64_t>(top - k) * 32 + lane];
+          GAT_ST(&rows[k * 32 + lane],
+                 GAT_LD(&par[static_cast<int64_t>(top - k) * 32 + lane]));
         }
       }
-      if (top - lane >= low) row_center[lane] = center[top - lane];
-      __syncwarp();
+      if (top - lane >= low) {
+        GAT_ST(&row_center[lane], GAT_LD(&center[top - lane]));
+      }
+      GAT_SYNCWARP();
       if (lane == 0) {
         while (ap >= low) {
           const int k = top - ap;
-          const int c = row_center[k];
+          const int c = GAT_LD(&row_center[k]);
           int p_off = bp - c + mi;
           if (p_off < 0) p_off = 0;
           if (p_off >= band_size) {
@@ -362,19 +377,19 @@ band_ext_kernel(const uint8_t* __restrict__ a_codes,
           const int j = p_off - max(mi - c, 0);
           int parent = 0;
           if (j >= 0 && j < n) {
-            parent = (static_cast<uint32_t>(rows[k * 32 + j / C]) >>
+            parent = (static_cast<uint32_t>(GAT_LD(&rows[k * 32 + j / C])) >>
                       (4 * (j % C))) & 15;
           }
           if (state == 1) {
-            mv[cnt++] = 2;
+            GAT_ST(&mv[cnt++], 2);
             --bp;
             state = (parent & kUpExt) ? 1 : 0;
           } else if (state == 2) {
-            mv[cnt++] = 3;
+            GAT_ST(&mv[cnt++], 3);
             --ap;
             state = (parent & kLeftExt) ? 2 : 0;
           } else {
-            mv[cnt++] = 1;
+            GAT_ST(&mv[cnt++], 1);
             --ap;
             --bp;
             state = (parent & kMask) == kUp     ? 1
@@ -382,28 +397,32 @@ band_ext_kernel(const uint8_t* __restrict__ a_codes,
                                                 : 0;
           }
           if (ap < 0 || bp < 0) {
-            for (; ap >= 0; --ap) mv[cnt++] = 3;
-            for (; bp >= 0; --bp) mv[cnt++] = 2;
+            for (; ap >= 0; --ap) GAT_ST(&mv[cnt++], 3);
+            for (; bp >= 0; --bp) GAT_ST(&mv[cnt++], 2);
             state = 3;
             break;
           }
         }
       }
+      GAT_COLLECTIVE(kFull);
       ap = __shfl_sync(kFull, ap, 0);
       state = __shfl_sync(kFull, state, 0);
-      __syncwarp();  // lane 0 has left the rows before the next fetch
+      GAT_SYNCWARP();  // lane 0 has left the rows before the next fetch
     }
   }
-  if (lane != 0) return;
+  if (lane != 0) {
+    GAT_EXIT();
+    return;
+  }
   int32_t* out = meta + p * kMeta;
-  out[0] = ok;
-  out[1] = best;
-  out[2] = a_best;
-  out[3] = b_best;
-  out[4] = cnt;
-  out[5] = err;
-  out[6] = columns;
-  out[7] = cells;
+  GAT_ST(&out[0], ok);
+  GAT_ST(&out[1], best);
+  GAT_ST(&out[2], a_best);
+  GAT_ST(&out[3], b_best);
+  GAT_ST(&out[4], cnt);
+  GAT_ST(&out[5], err);
+  GAT_ST(&out[6], columns);
+  GAT_ST(&out[7], cells);
 }
 
 template <int C>
@@ -419,6 +438,19 @@ cudaError_t launch(const void* a_codes, const void* a_off,
   cudaError_t err = cudaFuncSetAttribute(
       band_ext_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
+  gat_check::Launch ck("band_ext_kernel", "band.cu");
+  ck.arg("a_codes", a_codes, gat_check::kIn);
+  ck.arg("a_off", a_off, gat_check::kIn);
+  ck.arg("b_codes", b_codes, gat_check::kIn);
+  ck.arg("b_off", b_off, gat_check::kIn);
+  ck.arg("parents", parents, gat_check::kScratch);
+  ck.arg("centers", centers, gat_check::kScratch);
+  ck.arg("meta", meta, gat_check::kOut, n_problems * kMeta * 4);
+  ck.arg("moves", moves, gat_check::kIn);
+  if (const int e = ck.begin(reinterpret_cast<const void*>(band_ext_kernel<C>),
+                             blocks, kWarps * 32, smem, stream)) {
+    return static_cast<cudaError_t>(e);
+  }
   band_ext_kernel<C><<<static_cast<unsigned>(blocks), kWarps * 32, smem,
                        stream>>>(
       static_cast<const uint8_t*>(a_codes),
@@ -427,7 +459,8 @@ cudaError_t launch(const void* a_codes, const void* a_off,
       static_cast<const int64_t*>(b_off), n_problems, prm, parents,
       static_cast<int32_t*>(centers), static_cast<int32_t*>(meta),
       static_cast<uint8_t*>(moves));
-  return cudaGetLastError();
+  return static_cast<cudaError_t>(
+      ck.end(static_cast<int>(cudaGetLastError())));
 }
 
 }  // namespace

@@ -80,6 +80,8 @@
 
 #include <cuda_runtime.h>
 
+#include "check.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -139,6 +141,7 @@ __device__ __forceinline__ Seg combine(Seg a, Seg b) {
 
 template <class Op>
 __device__ __forceinline__ Seg warp_scan(Seg x, int lane) {
+  GAT_COLLECTIVE(kFull);
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     const Seg up{__shfl_up_sync(kFull, x.v, d), __shfl_up_sync(kFull, x.f, d)};
@@ -150,6 +153,7 @@ __device__ __forceinline__ Seg warp_scan(Seg x, int lane) {
 // The exclusive form of a warp's inclusive scan.
 template <class Op>
 __device__ __forceinline__ Seg warp_exclusive(Seg inc, int lane) {
+  GAT_COLLECTIVE(kFull);
   const Seg up{__shfl_up_sync(kFull, inc.v, 1), __shfl_up_sync(kFull, inc.f, 1)};
   return lane == 0 ? Seg{Op::kIdentity, 0} : up;
 }
@@ -160,12 +164,14 @@ __device__ __forceinline__ uint64_t pack_status(uint64_t status, Seg x) {
 }
 
 __device__ __forceinline__ void store_status(uint64_t* p, uint64_t word) {
+  GAT_TOUCH(p, 8, true);
   asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
                :: "l"(p), "l"(word) : "memory");
 }
 
 __device__ __forceinline__ uint64_t load_status(const uint64_t* p) {
   uint64_t word;
+  GAT_TOUCH(p, 8, false);
   asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
                : "=l"(word) : "l"(p) : "memory");
   return word;
@@ -216,13 +222,14 @@ __device__ void scan_tile(int32_t (&v)[kItems], const int32_t (&reset)[kItems],
   }
   const Seg inc = warp_scan<Op>(acc, lane);
   const Seg exc = warp_exclusive<Op>(inc, lane);
-  if (lane == 31) sh.warp_inc[warp] = inc;
-  __syncthreads();
+  if (lane == 31) GAT_ST(&sh.warp_inc[warp], inc);
+  GAT_SYNCTHREADS();
   if (warp == 0) {
-    const Seg x = lane < kWarps ? sh.warp_inc[lane] : Seg{Op::kIdentity, 0};
+    const Seg x =
+        lane < kWarps ? GAT_LD(&sh.warp_inc[lane]) : Seg{Op::kIdentity, 0};
     const Seg xi = warp_scan<Op>(x, lane);
     const Seg xe = warp_exclusive<Op>(xi, lane);
-    if (lane < kWarps) sh.warp_exc[lane] = xe;
+    if (lane < kWarps) GAT_ST(&sh.warp_exc[lane], xe);
     if (lane == kWarps - 1) {   // xi is the tile's aggregate
       Seg carry{Op::kIdentity, 0};
       if (tile == 0) {
@@ -233,12 +240,13 @@ __device__ void scan_tile(int32_t (&v)[kItems], const int32_t (&reset)[kItems],
         store_status(status + tile,
                      pack_status(kPrefix, combine<Op>(carry, xi)));
       }
-      sh.carry = carry;
+      GAT_ST(&sh.carry, carry);
     }
   }
-  __syncthreads();
+  GAT_SYNCTHREADS();
   // the scan's value just before this thread's first chunk
-  const Seg pre = combine<Op>(combine<Op>(sh.carry, sh.warp_exc[warp]), exc);
+  const Seg pre = combine<Op>(
+      combine<Op>(GAT_LD(&sh.carry), GAT_LD(&sh.warp_exc[warp])), exc);
   int32_t seen = 0;
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
@@ -262,7 +270,7 @@ __device__ __forceinline__ void load_items(const int32_t* p,
                                            int32_t (&x)[kItems]) {
 #pragma unroll
   for (int j = 0; j < kItems; j += 4) {
-    const int4 q = *reinterpret_cast<const int4*>(p + j);
+    const int4 q = GAT_LD(reinterpret_cast<const int4*>(p + j));
     x[j] = q.x;
     x[j + 1] = q.y;
     x[j + 2] = q.z;
@@ -274,8 +282,8 @@ __device__ __forceinline__ void store_items(int32_t* p,
                                             const int32_t (&x)[kItems]) {
 #pragma unroll
   for (int j = 0; j < kItems; j += 4) {
-    *reinterpret_cast<int4*>(p + j) = make_int4(x[j], x[j + 1], x[j + 2],
-                                                x[j + 3]);
+    GAT_ST(reinterpret_cast<int4*>(p + j),
+           make_int4(x[j], x[j + 1], x[j + 2], x[j + 3]));
   }
 }
 
@@ -287,7 +295,7 @@ struct SumsGiven {
   const int32_t* s;
   __device__ void load(int32_t* out, int64_t base, int n) const {
     for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      out[i] = i < n ? s[base + i] : 0;
+      GAT_ST(&out[i], i < n ? GAT_LD(&s[base + i]) : 0);
     }
   }
 };
@@ -330,19 +338,22 @@ struct Code {
       for (int k = 0; k < 25; ++k) {
         if (i == k && k / 5 < 4 && k % 5 < 4) v = lut25[k];
       }
-      code_table[i] = v;
+      GAT_ST(&code_table[i], v);
     }
-    __syncthreads();
+    GAT_SYNCTHREADS();
   }
   __device__ int32_t single(uint32_t b, int32_t acc) const {
-    return acc + code_table[b & 0xff];
+    return acc + GAT_LD(&code_table[b & 0xff]);
   }
   __device__ int32_t pair(uint32_t h, int32_t acc) const {
-    return acc + code_table[h & 0xff] + code_table[(h >> 8) & 0xff];
+    return acc + GAT_LD(&code_table[h & 0xff]) +
+           GAT_LD(&code_table[(h >> 8) & 0xff]);
   }
   __device__ int32_t word(uint32_t w, int32_t acc) const {
-    return acc + code_table[w & 0xff] + code_table[(w >> 8) & 0xff] +
-           code_table[(w >> 16) & 0xff] + code_table[w >> 24];
+    return acc + GAT_LD(&code_table[w & 0xff]) +
+           GAT_LD(&code_table[(w >> 8) & 0xff]) +
+           GAT_LD(&code_table[(w >> 16) & 0xff]) +
+           GAT_LD(&code_table[w >> 24]);
   }
 };
 
@@ -393,7 +404,7 @@ struct RowsVec {
     const int sub = lane % kLanesPerRow;
     const int row0 = (threadIdx.x >> 5) * (32 / kLanesPerRow) +
                      lane / kLanesPerRow;
-    const int32_t tw = tweak != nullptr ? *tweak : 0;
+    const int32_t tw = tweak != nullptr ? GAT_LD(tweak) : 0;
     const int4* p = reinterpret_cast<const int4*>(tiles + base * kRowBytes) +
                     sub;
     for (int step = 0; step < kSteps; step += kUnroll) {
@@ -401,7 +412,8 @@ struct RowsVec {
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int row = (step + u) * kRowsPerStep + row0;
-        q[u] = row < n ? __ldcs(p + row * kLanesPerRow) : make_int4(0, 0, 0, 0);
+        q[u] = row < n ? GAT_LDCS(p + row * kLanesPerRow)
+                       : make_int4(0, 0, 0, 0);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -409,12 +421,13 @@ struct RowsVec {
         acc = dec.word(static_cast<uint32_t>(q[u].y), acc);
         acc = dec.word(static_cast<uint32_t>(q[u].z), acc);
         acc = dec.word(static_cast<uint32_t>(q[u].w), acc);
+        GAT_COLLECTIVE(kFull);
 #pragma unroll
         for (int d = 1; d < kLanesPerRow; d <<= 1) {
           acc += __shfl_xor_sync(kFull, acc, d);
         }
         const int row = (step + u) * kRowsPerStep + row0;
-        if (sub == 0) out[row] = row < n ? wrap_add(acc, tw) : 0;
+        if (sub == 0) GAT_ST(&out[row], row < n ? wrap_add(acc, tw) : 0);
       }
     }
   }
@@ -430,20 +443,22 @@ struct RowsAny {
   Dec dec;
   __device__ void load(int32_t* out, int64_t base, int n) const {
     dec.prepare();
-    const int32_t tw = tweak != nullptr ? *tweak : 0;
+    const int32_t tw = tweak != nullptr ? GAT_LD(tweak) : 0;
     for (int i = threadIdx.x; i < kTile; i += kThreads) {
       int32_t acc = 0;
       if (i < n) {
         const uint8_t* row = tiles + (base + i) * width;
         if (width % 2 == 0) {
           const auto* row2 = reinterpret_cast<const uint16_t*>(row);
-          for (int b = 0; b < width / 2; ++b) acc = dec.pair(row2[b], acc);
+          for (int b = 0; b < width / 2; ++b) {
+            acc = dec.pair(GAT_LD(&row2[b]), acc);
+          }
         } else {
-          for (int b = 0; b < width; ++b) acc = dec.single(row[b], acc);
+          for (int b = 0; b < width; ++b) acc = dec.single(GAT_LD(&row[b]), acc);
         }
         acc = wrap_add(acc, tw);
       }
-      out[i] = acc;
+      GAT_ST(&out[i], acc);
     }
   }
 };
@@ -455,19 +470,22 @@ combine_kernel(Rows rows, const int32_t* __restrict__ bias,
                int32_t* __restrict__ c_out, int32_t* __restrict__ w_out,
                unsigned int* ticket, uint64_t* status, int n_tiles) {
   __shared__ Shared sh;
-  if (threadIdx.x == 0) sh.tile = static_cast<int>(atomicAdd(ticket, 1u));
-  __syncthreads();
-  const int tile = sh.tile;
+  if (threadIdx.x == 0) {
+    GAT_TOUCH(ticket, 4, true);
+    GAT_ST(&sh.tile, static_cast<int>(atomicAdd(ticket, 1u)));
+  }
+  GAT_SYNCTHREADS();
+  const int tile = GAT_LD(&sh.tile);
   const int64_t base = static_cast<int64_t>(tile) * kTile;
   const int64_t rest = m - base;
   const int n = rest < kTile ? static_cast<int>(rest) : kTile;
   for (int i = threadIdx.x; i < kTile; i += kThreads) {
     const bool in = i < n;
-    sh.bias[i] = in ? bias[base + i] : 0;
-    sh.flags[i] = in ? flags[base + i] : 0;
+    GAT_ST(&sh.bias[i], in ? GAT_LD(&bias[base + i]) : 0);
+    GAT_ST(&sh.flags[i], in ? GAT_LD(&flags[base + i]) : 0);
   }
   rows.load(sh.s, base, n);
-  __syncthreads();
+  GAT_SYNCTHREADS();
 
   const int first = threadIdx.x * kItems;
   int32_t s[kItems], fl[kItems], v[kItems], reset[kItems], c[kItems];
@@ -495,29 +513,45 @@ combine_kernel(Rows rows, const int32_t* __restrict__ bias,
   // flags to stage c and w for coalesced stores
   store_items(sh.bias + first, c);
   store_items(sh.flags + first, v);
-  __syncthreads();
+  GAT_SYNCTHREADS();
   for (int i = threadIdx.x; i < n; i += kThreads) {
-    c_out[base + i] = sh.bias[i];
-    w_out[base + i] = sh.flags[i];
+    GAT_ST(&c_out[base + i], GAT_LD(&sh.bias[i]));
+    GAT_ST(&w_out[base + i], GAT_LD(&sh.flags[i]));
   }
 }
 
 int64_t tiles_of(int64_t m) { return (m + kTile - 1) / kTile; }
 
+// `source` and `tweak` are the rows' device pointers (tweak may be null),
+// named for the checked build.
 template <class Rows>
-int launch(const Rows& rows, const void* bias, const void* flags, int64_t m,
-           void* c, void* w, void* scratch, void* stream) {
+int launch(const Rows& rows, const void* source, const void* tweak,
+           const void* bias, const void* flags, int64_t m, void* c, void* w,
+           void* scratch, void* stream) {
   if (m <= 0) return static_cast<int>(cudaSuccess);
   const int64_t n_tiles = tiles_of(m);
   if (n_tiles > 2147483647 / 3) return static_cast<int>(cudaErrorInvalidValue);
   auto* ticket = static_cast<unsigned int*>(scratch);
   auto* status = static_cast<uint64_t*>(scratch) + 1;
-  combine_kernel<Rows><<<static_cast<unsigned>(n_tiles), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  const auto s = static_cast<cudaStream_t>(stream);
+  gat_check::Launch ck("combine_kernel", "combine.cu");
+  ck.arg("rows", source, gat_check::kIn);
+  ck.arg("tweak", tweak, gat_check::kIn);
+  ck.arg("bias", bias, gat_check::kIn);
+  ck.arg("flags", flags, gat_check::kIn);
+  ck.arg("c", c, gat_check::kOut, m * 4);
+  ck.arg("w", w, gat_check::kOut, m * 4);
+  ck.arg("scratch", scratch, gat_check::kIn);
+  if (const int e = ck.begin(reinterpret_cast<const void*>(
+                                 combine_kernel<Rows>),
+                             n_tiles, kThreads, 0, s)) {
+    return e;
+  }
+  combine_kernel<Rows><<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
       rows, static_cast<const int32_t*>(bias),
       static_cast<const int32_t*>(flags), m, static_cast<int32_t*>(c),
       static_cast<int32_t*>(w), ticket, status, static_cast<int>(n_tiles));
-  return static_cast<int>(cudaGetLastError());
+  return ck.end(static_cast<int>(cudaGetLastError()));
 }
 
 }  // namespace
@@ -535,8 +569,8 @@ extern "C" int64_t gat_pair_combine_scratch(int64_t m) {
 extern "C" int gat_pair_combine(const void* s, const void* bias,
                                 const void* flags, int64_t m, void* c, void* w,
                                 void* scratch, void* stream) {
-  return launch(SumsGiven{static_cast<const int32_t*>(s)}, bias, flags, m, c,
-                w, scratch, stream);
+  return launch(SumsGiven{static_cast<const int32_t*>(s)}, s, nullptr, bias,
+                flags, m, c, w, scratch, stream);
 }
 
 // K2 from (m, chunk) int8 score tiles, 16-byte aligned, chunk even in
@@ -553,11 +587,11 @@ extern "C" int gat_pair_combine_tiles(const void* tiles, int chunk,
   const auto* t = static_cast<const uint8_t*>(tiles);
   const auto* tw = static_cast<const int32_t*>(tweak);
   if (chunk == 128) {
-    return launch(RowsVec<Score8, 128>{t, tw, {}}, bias, flags, m, c, w,
-                  scratch, stream);
+    return launch(RowsVec<Score8, 128>{t, tw, {}}, t, tw, bias, flags, m,
+                  c, w, scratch, stream);
   }
-  return launch(RowsAny<Score8>{t, tw, chunk, {}}, bias, flags, m, c, w,
-                scratch, stream);
+  return launch(RowsAny<Score8>{t, tw, chunk, {}}, t, tw, bias, flags, m,
+                c, w, scratch, stream);
 }
 
 // K2 from (m, chunk) combined-code tiles (a byte q * 5 + t a base), 16-byte
@@ -579,11 +613,11 @@ extern "C" int gat_pair_combine_code(const void* tiles, int chunk,
   const auto* t = static_cast<const uint8_t*>(tiles);
   const auto* tw = static_cast<const int32_t*>(tweak);
   if (chunk == 128) {
-    return launch(RowsVec<Code, 128>{t, tw, dec}, bias, flags, m, c, w,
-                  scratch, stream);
+    return launch(RowsVec<Code, 128>{t, tw, dec}, t, tw, bias, flags, m,
+                  c, w, scratch, stream);
   }
-  return launch(RowsAny<Code>{t, tw, chunk, dec}, bias, flags, m, c, w,
-                scratch, stream);
+  return launch(RowsAny<Code>{t, tw, chunk, dec}, t, tw, bias, flags, m,
+                c, w, scratch, stream);
 }
 
 // K2 from (m, width) 4-bit score-index tiles (two bases a byte, a nibble
@@ -607,9 +641,9 @@ extern "C" int gat_pair_combine_score4(const void* tiles, int width,
   const auto* t = static_cast<const uint8_t*>(tiles);
   const auto* tw = static_cast<const int32_t*>(tweak);
   if (width == 64) {
-    return launch(RowsVec<Score4, 64>{t, tw, dec}, bias, flags, m, c, w,
-                  scratch, stream);
+    return launch(RowsVec<Score4, 64>{t, tw, dec}, t, tw, bias, flags, m,
+                  c, w, scratch, stream);
   }
-  return launch(RowsAny<Score4>{t, tw, width, dec}, bias, flags, m, c, w,
-                scratch, stream);
+  return launch(RowsAny<Score4>{t, tw, width, dec}, t, tw, bias, flags, m,
+                c, w, scratch, stream);
 }

@@ -72,6 +72,8 @@
 
 #include <cuda_runtime.h>
 
+#include "check.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
@@ -94,15 +96,15 @@ __device__ __forceinline__ Chunk load_chunk(
     const int64_t* q_off, const int32_t* len, int64_t c, int64_t n_chunks) {
   Chunk ch{0, 0, 0};
   if (c < n_chunks) {
-    ch.t = reinterpret_cast<unsigned long long>(t_codes) + __ldg(t_off + c);
-    ch.q = reinterpret_cast<unsigned long long>(q_codes) + __ldg(q_off + c);
-    ch.n = __ldg(len + c);
+    ch.t = reinterpret_cast<unsigned long long>(t_codes) + GAT_LDG(t_off + c);
+    ch.q = reinterpret_cast<unsigned long long>(q_codes) + GAT_LDG(q_off + c);
+    ch.n = GAT_LDG(len + c);
   }
   return ch;
 }
 
 __device__ __forceinline__ uint4 load16(unsigned long long addr, bool on) {
-  return on ? __ldg(reinterpret_cast<const uint4*>(addr))
+  return on ? GAT_LDG(reinterpret_cast<const uint4*>(addr))
             : make_uint4(0, 0, 0, 0);
 }
 
@@ -118,8 +120,8 @@ __device__ __forceinline__ int32_t word_sum(uint32_t t, uint32_t q,
       (((valid * 0x00204081u) & 0x01010101u) ^ 0x01010101u) << 7;
   const uint32_t idx =
       ((q << 3) & 0x38383838u) | (t & 0x07070707u) | n4 | out;
-  return s_lut[idx & 0xFFu] + s_lut[(idx >> 8) & 0xFFu] +
-         s_lut[(idx >> 16) & 0xFFu] + s_lut[idx >> 24];
+  return GAT_LD(&s_lut[idx & 0xFFu]) + GAT_LD(&s_lut[(idx >> 8) & 0xFFu]) +
+         GAT_LD(&s_lut[(idx >> 16) & 0xFFu]) + GAT_LD(&s_lut[idx >> 24]);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -133,9 +135,9 @@ rescore_chunks_kernel(const uint8_t* __restrict__ t_codes,
   __shared__ int32_t s_sums[kWarpsPerBlock][32];
   for (int i = threadIdx.x; i < kLutSize; i += kThreads) {
     const int q = (i >> 3) & 7, t = i & 7;
-    s_lut[i] = (i < 64 && q < 4 && t < 4) ? lut.v[q * 4 + t] : 0;
+    GAT_ST(&s_lut[i], (i < 64 && q < 4 && t < 4) ? lut.v[q * 4 + t] : 0);
   }
-  __syncthreads();
+  GAT_SYNCTHREADS();
 
   const int lane = threadIdx.x & 31;
   int32_t* sums = s_sums[threadIdx.x >> 5];  // of the pass's 32 chunks
@@ -153,6 +155,7 @@ rescore_chunks_kernel(const uint8_t* __restrict__ t_codes,
     const int units =
         mine.n > 0 ? (static_cast<int>(mine.t & 15) + mine.n + 31) >> 5 : 0;
     int incl = units;
+    GAT_COLLECTIVE(kFull);
 #pragma unroll
     for (int s = 1; s < 32; s <<= 1) {
       const int y = __shfl_up_sync(kFull, incl, s);
@@ -160,13 +163,14 @@ rescore_chunks_kernel(const uint8_t* __restrict__ t_codes,
     }
     const int first = incl - units;  // the number of the chunk's unit 0
     const int total = __shfl_sync(kFull, incl, 31);
-    sums[lane] = 0;
-    __syncwarp();
+    GAT_ST(&sums[lane], 0);
+    GAT_SYNCWARP();
     for (int w0 = 0; w0 < total; w0 += 32) {
       const int w = w0 + lane;
       const bool on = w < total;
       // the owner: the first chunk whose units end past w
       int owner = 0;
+      GAT_COLLECTIVE(kFull);
 #pragma unroll
       for (int s = 16; s > 0; s >>= 1) {
         if (__shfl_sync(kFull, incl, owner + s - 1) <= w) owner += s;
@@ -215,13 +219,17 @@ rescore_chunks_kernel(const uint8_t* __restrict__ t_codes,
       }
       // the lanes of one chunk are neighbours: add them up, the first adds
       // the total to the chunk's slot
+      GAT_COLLECTIVE(kFull);
       const unsigned peers = __match_any_sync(kFull, on ? owner : 32);
+      GAT_COLLECTIVE(peers);
       acc = __reduce_add_sync(peers, acc);
-      if (on && lane == __ffs(peers) - 1) sums[owner] += acc;
-      __syncwarp();
+      if (on && lane == __ffs(peers) - 1) {
+        GAT_ST(&sums[owner], GAT_LD(&sums[owner]) + acc);
+      }
+      GAT_SYNCWARP();
     }
-    if (base + lane < n_chunks) out[base + lane] = sums[lane];
-    __syncwarp();  // before the next pass clears the slots
+    if (base + lane < n_chunks) GAT_ST(&out[base + lane], GAT_LD(&sums[lane]));
+    GAT_SYNCWARP();  // before the next pass clears the slots
     mine = next;
   }
 }
@@ -244,13 +252,25 @@ extern "C" int gat_rescore_chunks(const void* t_codes, const void* q_codes,
   const int64_t per_block = kWarpsPerBlock * 32;
   int64_t blocks = (n_chunks + per_block - 1) / per_block;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  rescore_chunks_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  const auto s = static_cast<cudaStream_t>(stream);
+  gat_check::Launch ck("rescore_chunks_kernel", "rescore.cu");
+  ck.arg("t_codes", t_codes, gat_check::kIn);
+  ck.arg("q_codes", q_codes, gat_check::kIn);
+  ck.arg("t_off", t_off, gat_check::kIn);
+  ck.arg("q_off", q_off, gat_check::kIn);
+  ck.arg("len", len, gat_check::kIn);
+  ck.arg("out", out, gat_check::kOut, n_chunks * 4);
+  if (const int e = ck.begin(reinterpret_cast<const void*>(
+                                 rescore_chunks_kernel),
+                             blocks, kThreads, 0, s)) {
+    return e;
+  }
+  rescore_chunks_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
       static_cast<const uint8_t*>(t_codes),
       static_cast<const uint8_t*>(q_codes), lut,
       static_cast<const int64_t*>(t_off), static_cast<const int64_t*>(q_off),
       static_cast<const int32_t*>(len), n_chunks, static_cast<int32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return ck.end(static_cast<int>(cudaGetLastError()));
 }
 
 extern "C" const char* gat_cuda_error_string(int code) {

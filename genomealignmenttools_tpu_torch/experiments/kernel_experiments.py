@@ -84,7 +84,7 @@ def build_variant(name: str, source: str, edits=()) -> ctypes.CDLL:
     so = os.path.join(out_dir, name + ".so")
     res = subprocess.run(
         [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-         "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", so, cu],
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", CSRC, "-o", so, cu],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}:\n{res.stdout}")
@@ -504,8 +504,8 @@ def experiment_k2(tmp: str, out_dir: str | None) -> None:
     threads = "constexpr int kThreads = 512;"
     items = "constexpr int kItems = 4; "
     unroll = "constexpr int kUnroll = 4; "
-    cut = ("  rows.load(sh.s, base, n);\n  __syncthreads();\n",
-           "  rows.load(sh.s, base, n);\n  __syncthreads();\n"
+    cut = ("  rows.load(sh.s, base, n);\n  GAT_SYNCTHREADS();\n",
+           "  rows.load(sh.s, base, n);\n  GAT_SYNCTHREADS();\n"
            "  for (int i = threadIdx.x; i < n; i += kThreads) "
            "c_out[base + i] = sh.s[i];\n  if (n > 0) return;\n")
     v1 = bind_v1(build_variant("combine_v1",

@@ -333,8 +333,8 @@ def _launch_kernel(a_codes, a_off, b_codes, b_off, mat, global_mode: bool,
     lib = _build.load_library()
     dev = a_codes.device
     n_prob = a_off.numel() - 1
-    # uninitialised: the kernel writes each parent word at most once and
-    # its traceback reads only what a column wrote
+    # uninitialised: the kernel writes every parent word of every column it
+    # runs once, before its traceback reads it
     row_bytes = parent_layout(max_insert)[1]
     if lib.gat_band_parent_row_bytes(max_insert) != row_bytes:
         raise RuntimeError("band.cu and parent_layout disagree on the parent "

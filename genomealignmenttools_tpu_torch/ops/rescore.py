@@ -45,7 +45,7 @@ from ..engines.scoring import (chain_global_score, chain_local_score,
                                gap_costs)
 from ..native import get_lib
 from ..utils.profiling import phase
-from .window_rescore import WindowBlockScorer
+from .window_rescore import WindowBlockScorer, upload_codes
 
 # .pair_rescore is imported inside the functions that need it: it imports
 # _n_threads from this module, as the reference's does
@@ -91,7 +91,7 @@ class TorchGenomeCache:
         while _DEV_CODES and total + codes.nbytes > DEV_CODES_BUDGET:
             oldest = next(iter(_DEV_CODES))
             total -= _DEV_CODES.pop(oldest)[0].nbytes
-        dev = torch.from_numpy(np.ascontiguousarray(codes)).to(self.device)
+        dev = upload_codes(codes, self.device)
         if self.device.type != "cpu":
             PERF["h2d_bytes"] += codes.nbytes
         _DEV_CODES[key] = (codes, dev)

@@ -14,6 +14,14 @@ int32 (CHUNK * 127 < 2^31).  The TPU's 16 kb windows, the per-window Python
 loop of `pack_windows` (pallas_rescore.py:220-236) and the fixed batch shape
 WB are not needed: the kernel reads each chunk straight from the genome
 codes resident on the card.
+
+K1 reads a chunk's bases as 16-byte words from 16-byte aligned addresses,
+so the last word of a genome may hold bytes past its end.  Genome codes
+therefore live in a storage padded with N (4) to a multiple of 16 bytes
+(`upload_codes`, used by TorchGenomeCache and ShardedBlockScorer), and the
+wrapper copies any code tensor whose storage does not hold the aligned span
+around it into one that does (`padded_codes`): the loads then stay inside
+the allocation whatever the allocator rounds.
 """
 
 from __future__ import annotations
@@ -28,6 +36,40 @@ from ..device import LAUNCHES, PERF
 from ..utils.profiling import phase
 
 CHUNK = 256  # max bases per chunk (pallas_rescore.py:37)
+ALIGN = 16   # bytes of K1's aligned loads (csrc/rescore.cu)
+N_CODE = 4
+
+
+def _padded_len(n: int) -> int:
+    return -(-n // ALIGN) * ALIGN
+
+
+def _padded_copy(codes: torch.Tensor, device) -> torch.Tensor:
+    """uint8 `codes` copied to `device` into the first bytes of a new
+    storage padded with N to a multiple of ALIGN bytes."""
+    n = codes.numel()
+    buf = torch.empty(_padded_len(n), dtype=torch.uint8, device=device)
+    buf[n:].fill_(N_CODE)
+    buf[:n].copy_(codes)
+    return buf[:n]
+
+
+def upload_codes(codes: np.ndarray, device) -> torch.Tensor:
+    """uint8 genome codes on `device` in a storage padded with N to a
+    multiple of 16 bytes: what K1 takes without a copy."""
+    return _padded_copy(
+        torch.from_numpy(np.ascontiguousarray(codes, np.uint8)), device)
+
+
+def padded_codes(codes: torch.Tensor) -> torch.Tensor:
+    """`codes` itself where its storage holds the 16-byte aligned span
+    around it, else a copy in a storage that does (upload_codes' layout)."""
+    st = codes.untyped_storage()
+    lo = codes.data_ptr() // ALIGN * ALIGN
+    hi = _padded_len(codes.data_ptr() + codes.numel())
+    if st.data_ptr() <= lo and hi <= st.data_ptr() + st.nbytes():
+        return codes
+    return _padded_copy(codes, codes.device)
 
 
 def chunk_blocks(blocks: np.ndarray, chunk: int = CHUNK):
@@ -110,6 +152,7 @@ def _launch_kernel(t_codes, q_codes, lut, t_off, q_off, length):
     """Launch K1 on the current stream of the tensors' CUDA device."""
     lib = _build.load_library()
     dev = t_codes.device
+    t_codes, q_codes = padded_codes(t_codes), padded_codes(q_codes)
     n = length.numel()
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:

@@ -36,7 +36,8 @@ from ..device import PERF, resolve_device
 from ..ops.pair_combine import tile_row_sums
 from ..ops.pair_rescore import lut8_of
 from ..ops.rescore import TorchChainScorer
-from ..ops.window_rescore import checked_lut, chunk_blocks, chunk_sums
+from ..ops.window_rescore import (checked_lut, chunk_blocks, chunk_sums,
+                                  upload_codes)
 from .distributed import shard_indices
 
 
@@ -102,7 +103,9 @@ class ShardedBlockScorer:
         hit = self._genome_cache.get(key)
         if hit is not None and hit[0] is codes:
             return hit[1]
-        dev_codes = _upload(np.asarray(codes, np.uint8), device)
+        if device.type != "cpu":
+            PERF["h2d_bytes"] += codes.nbytes
+        dev_codes = upload_codes(codes, device)
         self._genome_cache[key] = (codes, dev_codes)
         return dev_codes
 

@@ -4,7 +4,10 @@
 (t_off mod 16, q_off mod 16) at the lengths 0, 1, 15, 16, 17, 255 and 256,
 over genomes with N runs, then for every length and alignment a chunk that
 ends at the last byte of both genomes, and chunks that begin at their first
-byte.  `direct_sums` is the definition, in numpy, one chunk at a time.
+byte.  `tail_case` is the set that reaches past a genome's storage: genomes
+of every length 1..48, each its own array, with a chunk of every length
+ending at the last byte of both.  `direct_sums` is the definition, in numpy,
+one chunk at a time.
 """
 
 import numpy as np
@@ -50,6 +53,26 @@ def alignment_case(seed=20261019, t_len=70_001, q_len=50_003):
         length += [n, n, n]
     return (t, q, np.array(t_off, np.int64), np.array(q_off, np.int64),
             np.array(length, np.int32))
+
+
+# genome lengths of tail_case: every remainder mod 16, three times over
+TAIL_LENGTHS = tuple(range(1, 49))
+
+
+def tail_case(n: int, seed: int = 20261022):
+    """(t, q, t_off, q_off, length) for a t of n bases and a q of n + 5 (so
+    their ends lie at other alignments): one chunk of every length 0..n
+    that ends at the last byte of both, then the whole of t against q's
+    head.  On the card each genome is an allocation of its own size, so a
+    16-byte load past the last aligned word of either leaves it."""
+    rng = np.random.default_rng(seed + n)
+    t = rng.integers(0, 5, n).astype(np.uint8)
+    q = rng.integers(0, 5, n + 5).astype(np.uint8)
+    length = np.arange(0, n + 1, dtype=np.int32)
+    t_off = (n - length).astype(np.int64)
+    q_off = (n + 5 - length).astype(np.int64)
+    return (t, q, np.r_[t_off, 0], np.r_[q_off, 0],
+            np.r_[length, n].astype(np.int32))
 
 
 def direct_sums(t, q, lut, t_off, q_off, length):
