@@ -27,7 +27,8 @@ Layout (counterparts in genomealignmenttools_tpu/):
                           chain_io.py; __init__.py builds them with g++
                           into build/ and loads them under a lock
   formats/, utils/        copies (utils/profiling.py: torch.profiler trace,
-                          device_timer, the reference's phase timers)
+                          the phase timers, each phase a record_function
+                          range while the profiler records)
   ops/window_rescore.py   chunking, plain PyTorch K1, the kernel wrapper,
                           WindowBlockScorer (ops/pallas_rescore.py)
   ops/pair_combine.py     K2's wrappers (from int8, combined-code and 4-bit

@@ -14,6 +14,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..formats.twobit import TwoBitFile, TwoBitSeq
+from ..utils.profiling import phase
 
 
 _RC_CODE = np.array([2, 3, 0, 1, 4], dtype=np.uint8)  # T<->A, C<->G, N=N
@@ -90,13 +91,14 @@ class Genome:
 
     def seq(self, name: str) -> GenomeSeq:
         if name not in self._seqs:
-            raw: TwoBitSeq = self.tbf.read_seq(name)
-            self._seqs[name] = GenomeSeq(
-                name=name,
-                size=raw.size,
-                codes=raw.codes(),
-                mask=raw.mask_bits() if self.with_mask else None,
-            )
+            with phase("genome: decode"):
+                raw: TwoBitSeq = self.tbf.read_seq(name)
+                self._seqs[name] = GenomeSeq(
+                    name=name,
+                    size=raw.size,
+                    codes=raw.codes(),
+                    mask=raw.mask_bits() if self.with_mask else None,
+                )
         return self._seqs[name]
 
     def codes(self, name: str, strand: str = "+") -> np.ndarray:

@@ -44,6 +44,7 @@ from ..formats.gapcalc import gap_calc_from_file
 from ..formats.net import NetFill, read_nets
 from ..formats.scorematrix import read_score_scheme, score_scheme_default
 from ..utils.kenthash import KentHash
+from ..utils.profiling import phase
 from .chain_net import chain_net
 from .net_filter_nonnested import net_filter_non_nested
 from .scoring import ChainScorer, chain_global_score, chain_local_score
@@ -1007,7 +1008,8 @@ class ChainCleaner:
                 and os.environ.get("GAT_BREAK_LOOP", "1") != "0"
                 and self._loop_over_breaks_native()):
             return
-        self._prescore_breaks(allowed_parents)
+        with phase("cleaner: prescore"):
+            self._prescore_breaks(allowed_parents)
         for self._cur_list_pos, (key, break_list) in enumerate(
                 self.break_hash.el_list_order()):
             if allowed_parents is not None and key not in allowed_parents:
@@ -1414,7 +1416,7 @@ def _clean_chains_impl(in_chain: str, t_2bit: str, q_2bit: str,
     from ..utils.profiling import phase_add
     from ..utils.verbose import print_mem, verbose, verbosity
 
-    _pt = _time.monotonic()
+    _pt = _t0 = _time.monotonic()
     scheme = (read_score_scheme(score_scheme) if score_scheme
               else score_scheme_default())
     gap_calc = gap_calc_from_file(linear_gap)
@@ -1544,7 +1546,8 @@ def _clean_chains_impl(in_chain: str, t_2bit: str, q_2bit: str,
             # below, which remains both the fallback and the oracle the
             # parity tests compare against
             from .chain_net import net_tree_t_for_table
-            nt = net_tree_t_for_table(table, t_sizes, q_sizes, min_score=0)
+            with phase("cleaner: net"):
+                nt = net_tree_t_for_table(table, t_sizes, q_sizes, min_score=0)
             if nt is not None and cleaner.find_breaks_sweep(nt):
                 breaks_done = True
                 net_text = None
@@ -1556,26 +1559,28 @@ def _clean_chains_impl(in_chain: str, t_2bit: str, q_2bit: str,
             t_net_b = io.BytesIO()
             # q-side net goes to /dev/null in the reference
             # (chainCleaner.c:1660) - skip formatting it entirely
-            chain_net(table if table is not None else all_chains,
-                      t_sizes, q_sizes, t_net_b, None, min_score=0)
-            net_bytes = t_net_b.getvalue()
-            from .net_filter_nonnested import filter_net_bytes
-            mv = filter_net_bytes(net_bytes, min_score1=3000)
-            if mv is not None:
-                net_text = mv
-            else:
-                filtered = io.StringIO()
-                net_filter_non_nested(net_bytes.decode().splitlines(),
-                                      filtered, min_score1=3000)
-                net_text = filtered.getvalue().encode()
+            with phase("cleaner: net"):
+                chain_net(table if table is not None else all_chains,
+                          t_sizes, q_sizes, t_net_b, None, min_score=0)
+                net_bytes = t_net_b.getvalue()
+                from .net_filter_nonnested import filter_net_bytes
+                mv = filter_net_bytes(net_bytes, min_score1=3000)
+                if mv is not None:
+                    net_text = mv
+                else:
+                    filtered = io.StringIO()
+                    net_filter_non_nested(net_bytes.decode().splitlines(),
+                                          filtered, min_score1=3000)
+                    net_text = filtered.getvalue().encode()
         else:
-            t_net = io.StringIO()
-            chain_net(table if table is not None else all_chains,
-                      t_sizes, q_sizes, t_net, None, min_score=0)
-            filtered = io.StringIO()
-            net_filter_non_nested(t_net.getvalue().splitlines(), filtered,
-                                  min_score1=3000)
-            net_text = filtered.getvalue().encode()
+            with phase("cleaner: net"):
+                t_net = io.StringIO()
+                chain_net(table if table is not None else all_chains,
+                          t_sizes, q_sizes, t_net, None, min_score=0)
+                filtered = io.StringIO()
+                net_filter_non_nested(t_net.getvalue().splitlines(), filtered,
+                                      min_score1=3000)
+                net_text = filtered.getvalue().encode()
         verbose(1, "DONE (nets in %s)\n" % net_source)
         verbose(1, "1. parsing fills/gaps from %s and getting valid breaks "
                    "...\n" % net_source)
@@ -1687,6 +1692,7 @@ def _clean_chains_impl(in_chain: str, t_2bit: str, q_2bit: str,
         with open(shard_out or out_chain_path, "w") as f:
             json.dump(bundle, f)
         verbose(1, "shard %d/%d bundle written\n" % (shard, num_shards))
+        phase_add("chainCleaner", _time.monotonic() - _t0)
         return
     verbose(1, "5. write the (new) breaking and the broken chains to %s "
                "...\n" % out_chain_path)
@@ -1733,6 +1739,7 @@ def _clean_chains_impl(in_chain: str, t_2bit: str, q_2bit: str,
             write_chains(sort_chains_by_score(passthrough + extra), outf)
     verbose(1, "DONE\n\n")
     phase_add("sort+write", _time.monotonic() - _pt)
+    phase_add("chainCleaner", _time.monotonic() - _t0)
     print_mem()
     verbose(1, "\nALL DONE. New chains are in %s. Deleted suspects in %s\n"
             % (out_chain_path, out_bed_path))

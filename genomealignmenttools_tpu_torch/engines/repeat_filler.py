@@ -32,6 +32,7 @@ from ..formats.chain import Chain
 from ..formats.gapcalc import gap_calc_from_file
 from ..formats.scorematrix import score_scheme_default
 from ..ops.seed_extend import GapAligner
+from ..utils.profiling import phase
 from .axt_chain import chain_pair, SeqPair
 
 
@@ -142,17 +143,41 @@ def _gap_job_chains(job: GapJob, hsps: list, t_codes, q_codes,
     return chains
 
 
-def run_gap_job(job: GapJob, t_genome: Genome, q_genome: Genome,
-                aligner: GapAligner, scheme, gap_calc,
-                axt_chain_min_score: int = 1000) -> list[Chain]:
-    """Run the per-gap lastz|axtChain|chainSort pipeline in-process.
-
-    Returns mini-chains sorted by score descending (chainSort semantics)."""
-    (t_codes, q_codes, t_size, q_size,
-     t_lo, t_hi, q_lo, q_hi) = _gap_job_regions(job, t_genome, q_genome)
-    hsps = aligner.align(t_codes, q_codes, t_lo, t_hi, q_lo, q_hi)
-    return _gap_job_chains(job, hsps, t_codes, q_codes, t_size, q_size,
-                           scheme, gap_calc, axt_chain_min_score)
+def _gap_jobs_chains(batch, t_genome, q_genome, aligner, scheme, gap_calc,
+                     axt_chain_min_score: int) -> list[list[Chain]]:
+    """The mini-chains of each gap job of `batch`: every stage runs over
+    the whole batch before the next, one phase a stage, and the banded-DP
+    problems of all the batch's gaps go through ONE BandExtBatch.run."""
+    with phase("rf: seed"):
+        ctxs = []          # (t_codes, q_codes, t_size, q_size)
+        seeded = []        # align_seed's regions and windows, or None
+        for job in batch:
+            (t_codes, q_codes, t_size, q_size,
+             t_lo, t_hi, q_lo, q_hi) = _gap_job_regions(
+                job, t_genome, q_genome)
+            ctxs.append((t_codes, q_codes, t_size, q_size))
+            seeded.append(aligner.align_seed(t_codes, q_codes,
+                                             t_lo, t_hi, q_lo, q_hi))
+    with phase("rf: hsp scan"):
+        blocks = [None if s is None else aligner.align_scan(s)
+                  for s in seeded]
+    with phase("rf: band problems"):
+        prepared = [([], None, []) if s is None
+                    else aligner.align_probs(s, b)
+                    for s, b in zip(seeded, blocks)]
+        probs_all = [p for _, _, probs in prepared for p in probs]
+    exts_all = aligner._band_batch().run(probs_all) if probs_all else []
+    with phase("rf: gapped finish"):
+        hsps_all = []
+        p0 = 0
+        for done, state, probs in prepared:
+            hsps_all.append(done if state is None else aligner.align_finish(
+                state, exts_all[p0:p0 + len(probs)]))
+            p0 += len(probs)
+    with phase("rf: chain"):
+        return [_gap_job_chains(job, hsps, *ctx, scheme, gap_calc,
+                                axt_chain_min_score)
+                for job, hsps, ctx in zip(batch, hsps_all, ctxs)]
 
 
 def splice_lines(job: GapJob, mini: Chain, ref_quirks: bool = False) -> str:
@@ -208,38 +233,17 @@ def _run_gap_jobs(jobs, t_genome, q_genome, aligner, scheme, gap_calc,
     DPs, instead of a ~29 ms round trip per gap; on host it is the same
     numpy loop either way (bit-identical results, the problems are
     self-contained byte strings).  GAT_RF_BATCH=0 forces the sequential
-    per-gap path."""
+    per-gap path: a chunk of one gap."""
     if os.environ.get("GAT_RF_BATCH", "1") == "0":
-        for job in jobs:
-            yield job, run_gap_job(job, t_genome, q_genome, aligner,
-                                   scheme, gap_calc, axt_chain_min_score)
-        return
+        chunk = 1
     for lo in range(0, len(jobs), chunk):
         batch = jobs[lo:lo + chunk]
-        ctxs = []          # (job, t_codes, q_codes, t_size, q_size)
-        states = []        # align_prepare state or direct result
-        probs_all = []
-        offsets = []
-        for job in batch:
-            (t_codes, q_codes, t_size, q_size,
-             t_lo, t_hi, q_lo, q_hi) = _gap_job_regions(
-                job, t_genome, q_genome)
-            done, state, probs = aligner.align_prepare(
-                t_codes, q_codes, t_lo, t_hi, q_lo, q_hi)
-            ctxs.append((job, t_codes, q_codes, t_size, q_size))
-            states.append((done, state))
-            offsets.append((len(probs_all), len(probs_all) + len(probs)))
-            probs_all.extend(probs)
-        exts_all = aligner._band_batch().run(probs_all) if probs_all else []
-        for (job, t_codes, q_codes, t_size, q_size), (done, state), \
-                (p0, p1) in zip(ctxs, states, offsets):
-            hsps = (done if state is None
-                    else aligner.align_finish(state, exts_all[p0:p1]))
-            yield job, _gap_job_chains(job, hsps, t_codes, q_codes,
-                                       t_size, q_size, scheme, gap_calc,
-                                       axt_chain_min_score)
+        yield from zip(batch, _gap_jobs_chains(
+            batch, t_genome, q_genome, aligner, scheme, gap_calc,
+            axt_chain_min_score))
 
 
+@phase("repeatfiller")
 def repeat_filler(chain_path: str, t_2bit: str, q_2bit: str, out,
                   chain_min_score: int = 0, chain_min_size_t: int = 0,
                   chain_min_size_q: int = 0,
@@ -262,75 +266,78 @@ def repeat_filler(chain_path: str, t_2bit: str, q_2bit: str, out,
     chains via chainExtractID first, RepeatFiller.py:244-302, so its
     output contains only the selected chains) - this is also the
     shard-by-chain hook for cluster fan-out."""
-    with open(chain_path) as f:
-        content = f.read()
-    chain_lines = [ln + "\n" for ln in content.split("\n")]
-    if num_shards > 1:
-        # deterministic contiguous chain partition (SURVEY §5.8 /
-        # patchChain.perl cluster-job fan-out): shard i keeps the exact
-        # line range of its chains, so concatenating shard outputs in
-        # shard order is byte-identical to a single run
-        from ..parallel.distributed import shard_indices
-        starts = [i for i, ln in enumerate(chain_lines)
-                  if ln.startswith("chain ")]
-        idx = shard_indices(len(starts), num_shards, shard)
-        lo = starts[idx.start] if idx.start < len(starts) else len(chain_lines)
-        if shard == 0:
-            lo = 0  # prelude (meta/blank) lines belong to the first shard
-        hi = starts[idx.stop] if idx.stop < len(starts) else len(chain_lines)
-        chain_lines = chain_lines[lo:hi]
-    if chain_ids is not None:
-        kept: list[str] = []
-        keep = False
-        for ln in chain_lines:
-            if ln.startswith("chain "):
-                w = ln.split()
-                keep = len(w) >= 13 and int(w[12]) in chain_ids
-                if keep and kept:
-                    kept.append("\n")  # blank separator between chains
-            if keep and ln.strip() != "":
-                kept.append(ln)
-        kept.append("\n")
-        chain_lines = kept
-    jobs = harvest_gap_jobs(
-        chain_lines, chain_min_score, chain_min_size_t, chain_min_size_q,
-        gap_min_t, gap_min_q, gap_max_t, gap_max_q)
+    with phase("rf: read + harvest"):
+        with open(chain_path) as f:
+            content = f.read()
+        chain_lines = [ln + "\n" for ln in content.split("\n")]
+        if num_shards > 1:
+            # deterministic contiguous chain partition (SURVEY §5.8 /
+            # patchChain.perl cluster-job fan-out): shard i keeps the exact
+            # line range of its chains, so concatenating shard outputs in
+            # shard order is byte-identical to a single run
+            from ..parallel.distributed import shard_indices
+            starts = [i for i, ln in enumerate(chain_lines)
+                      if ln.startswith("chain ")]
+            idx = shard_indices(len(starts), num_shards, shard)
+            lo = starts[idx.start] if idx.start < len(starts) else len(chain_lines)
+            if shard == 0:
+                lo = 0  # prelude (meta/blank) lines belong to the first shard
+            hi = starts[idx.stop] if idx.stop < len(starts) else len(chain_lines)
+            chain_lines = chain_lines[lo:hi]
+        if chain_ids is not None:
+            kept: list[str] = []
+            keep = False
+            for ln in chain_lines:
+                if ln.startswith("chain "):
+                    w = ln.split()
+                    keep = len(w) >= 13 and int(w[12]) in chain_ids
+                    if keep and kept:
+                        kept.append("\n")  # blank separator between chains
+                if keep and ln.strip() != "":
+                    kept.append(ln)
+            kept.append("\n")
+            chain_lines = kept
+        jobs = harvest_gap_jobs(
+            chain_lines, chain_min_score, chain_min_size_t, chain_min_size_q,
+            gap_min_t, gap_min_q, gap_max_t, gap_max_q)
 
-    scheme = score_scheme_default()
-    gap_calc = gap_calc_from_file("loose")
-    t_genome = open_genome(t_2bit)
-    q_genome = open_genome(q_2bit)
-    # K/L as in the reference's lastz invocation `K=1500 L=2000`
-    # (RepeatFiller.py:163-169); the gapped stage joins near-diagonal HSPs
-    # across indels with the banded affine DP
-    aligner = GapAligner(scheme.lut, seed_len=seed_len,
-                         hsp_threshold=hsp_threshold,
-                         gapped_threshold=gapped_threshold,
-                         gap_open=scheme.gap_open,
-                         gap_extend=scheme.gap_extend,
-                         char_matrix=scheme.char_matrix(),
-                         device=device)
+        scheme = score_scheme_default()
+        gap_calc = gap_calc_from_file("loose")
+        t_genome = open_genome(t_2bit)
+        q_genome = open_genome(q_2bit)
+        # K/L as in the reference's lastz invocation `K=1500 L=2000`
+        # (RepeatFiller.py:163-169); the gapped stage joins near-diagonal HSPs
+        # across indels with the banded affine DP
+        aligner = GapAligner(scheme.lut, seed_len=seed_len,
+                             hsp_threshold=hsp_threshold,
+                             gapped_threshold=gapped_threshold,
+                             gap_open=scheme.gap_open,
+                             gap_extend=scheme.gap_extend,
+                             char_matrix=scheme.char_matrix(),
+                             device=device)
 
-    replacements: dict[int, str] = {}
-    for job, minis in _run_gap_jobs(jobs, t_genome, q_genome, aligner,
-                                    scheme, gap_calc):
-        if not minis:
-            continue
-        best = minis[0]
-        # the reference compares the chainSort header's printed score
-        if int(float(f"{best.score:.0f}")) >= score_threshold:
-            replacements[job.line_nmbr] = splice_lines(job, best, ref_quirks)
+    found = list(_run_gap_jobs(jobs, t_genome, q_genome, aligner, scheme,
+                               gap_calc))
+    with phase("rf: splice + write"):
+        replacements: dict[int, str] = {}
+        for job, minis in found:
+            if not minis:
+                continue
+            best = minis[0]
+            # the reference compares the chainSort header's printed score
+            if int(float(f"{best.score:.0f}")) >= score_threshold:
+                replacements[job.line_nmbr] = splice_lines(job, best, ref_quirks)
 
-    close = False
-    if isinstance(out, str):
-        out = open(out, "w")
-        close = True
-    try:
-        for i, line in enumerate(chain_lines):
-            out.write(replacements.get(i, line))
-    finally:
-        if close:
-            out.close()
+        close = False
+        if isinstance(out, str):
+            out = open(out, "w")
+            close = True
+        try:
+            for i, line in enumerate(chain_lines):
+                out.write(replacements.get(i, line))
+        finally:
+            if close:
+                out.close()
 
 
 def repeat_filler_main(argv: list[str], device=None) -> int:

@@ -506,7 +506,8 @@ class BandExtBatch:
 
     def run(self, problems):
         if self.device is None:
-            return self._run_host(problems)
+            with phase("band: host batch"):
+                return self._run_host(problems)
         with phase("band: orient"):
             out, todo = orient(problems, self.a_max)
         for lo, hi in sub_batches([len(t[1]) for t in todo],

@@ -476,18 +476,13 @@ class GapAligner:
         discovery (soft-masked positions set to code 4 reproduce lastz's
         default masked seeding, where repeats cannot seed but extensions
         score through them; patchChain.perl:24 `[unmask]` lifts this)."""
-        if t_hi - t_lo > self.max_region or q_hi - q_lo > self.max_region:
+        seeded = self.align_seed(t_codes, q_codes, t_lo, t_hi, q_lo, q_hi,
+                                 t_seed_codes, q_seed_codes)
+        if seeded is None:
             return []
-        t_region = t_codes[t_lo:t_hi]
-        q_region = q_codes[q_lo:q_hi]
-        t_seed = (t_region if t_seed_codes is None
-                  else t_seed_codes[t_lo:t_hi])
-        q_seed = (q_region if q_seed_codes is None
-                  else q_seed_codes[q_lo:q_hi])
-        diag_w, w0, w1 = self._seed_windows(t_seed, q_seed)
-        blocks = self._scan_windows(t_region, q_region, diag_w, w0, w1,
-                                    t_lo, q_lo)
+        blocks = self.align_scan(seeded)
         if self.gapped_threshold is not None:
+            t_region, q_region, t_lo, q_lo, _ = seeded
             return self._gapped(blocks, t_region, q_region, t_lo, q_lo)
         blocks.sort(key=lambda b: (b[2], b[0]))
         return blocks
@@ -506,17 +501,40 @@ class GapAligner:
         hand each region's slice to align_finish(state, exts).  Identical
         results to per-region align() - the DP problems are
         self-contained byte strings."""
-        if t_hi - t_lo > self.max_region or q_hi - q_lo > self.max_region:
+        seeded = self.align_seed(t_codes, q_codes, t_lo, t_hi, q_lo, q_hi,
+                                 t_seed_codes, q_seed_codes)
+        if seeded is None:
             return [], None, []
+        return self.align_probs(seeded, self.align_scan(seeded))
+
+    # align_prepare's three stages, for callers that run each stage over
+    # many regions before the next (engines/repeat_filler.py)
+    def align_seed(self, t_codes: np.ndarray, q_codes: np.ndarray,
+                   t_lo: int, t_hi: int, q_lo: int, q_hi: int,
+                   t_seed_codes: np.ndarray | None = None,
+                   q_seed_codes: np.ndarray | None = None):
+        """The regions and their seed windows, or None when a region is
+        larger than max_region."""
+        if t_hi - t_lo > self.max_region or q_hi - q_lo > self.max_region:
+            return None
         t_region = t_codes[t_lo:t_hi]
         q_region = q_codes[q_lo:q_hi]
         t_seed = (t_region if t_seed_codes is None
                   else t_seed_codes[t_lo:t_hi])
         q_seed = (q_region if q_seed_codes is None
                   else q_seed_codes[q_lo:q_hi])
-        diag_w, w0, w1 = self._seed_windows(t_seed, q_seed)
-        blocks = self._scan_windows(t_region, q_region, diag_w, w0, w1,
-                                    t_lo, q_lo)
+        return (t_region, q_region, t_lo, q_lo,
+                self._seed_windows(t_seed, q_seed))
+
+    def align_scan(self, seeded) -> list:
+        """The HSP rows of align_seed's windows."""
+        t_region, q_region, t_lo, q_lo, (diag_w, w0, w1) = seeded
+        return self._scan_windows(t_region, q_region, diag_w, w0, w1,
+                                  t_lo, q_lo)
+
+    def align_probs(self, seeded, blocks: list):
+        """align_prepare's (done, state, probs) from the HSP rows."""
+        t_region, q_region, t_lo, q_lo, _ = seeded
         if self.gapped_threshold is None:
             blocks.sort(key=lambda b: (b[2], b[0]))
             return blocks, None, []

@@ -1,32 +1,35 @@
 """Tracing and timing on the port's device.
 
 Counterpart of genomealignmenttools_tpu/utils/profiling.py, whose `trace` is
-jax.profiler.trace and whose `device_timer` waits with
-jax.block_until_ready (profiling.py:73-96):
+jax.profiler.trace (profiling.py:73-96):
 
 - `trace(out_dir, device)` - torch.profiler over a region: CPU activity,
   and CUDA activity (CUPTI: every kernel on the card, the port's K1, K2 and
   K3 among them) when the run's device is CUDA; on exit a Chrome trace
   (chrome://tracing, Perfetto) is written into the directory.  Enabled by
   the port CLI's -profile=dir or GAT_PROFILE=dir; a no-op without either.
-- `device_timer(fn, ...)` - (result, seconds), synchronising the CUDA
-  devices of the result before the clock stops.
+- `phase(name)` - a host wall-clock span: "name: N millis" at verbosity 2,
+  summed into the accumulation (`phase_acc_start`/`phase_acc_stop`) when
+  opened on the thread that started it, and a `record_function` range of
+  the same name on the profiler's timeline while torch.profiler records,
+  so a trace shows each phase beside the kernels it launched.
 
-The phase timers and the profile directory (`phase`, `phase_add`,
-`phase_acc_start`/`phase_acc_stop`, `set_profile_dir`, `profile_dir`) are
-the reference's text (profiling.py:24-70).
+`phase_add`, `phase_acc_stop`, `set_profile_dir` and `profile_dir` are the
+reference's text (profiling.py:24-59); `phase_acc_start` also notes the
+thread that starts the accumulation.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 
 import torch
 
 from ..device import resolve_device
-from .verbose import verbose
+from .verbose import verbose, verbosity
 
 _profile_dir: str | None = None
 
@@ -46,7 +49,8 @@ _phase_acc: dict | None = None
 
 def phase_acc_start() -> None:
     """Begin accumulating phase() durations (bench phase breakdowns)."""
-    global _phase_acc
+    global _phase_acc, _phase_owner
+    _phase_owner = threading.get_ident()
     _phase_acc = {}
 
 
@@ -64,18 +68,30 @@ def phase_add(name: str, seconds: float) -> None:
         _phase_acc[name] = _phase_acc.get(name, 0.0) + seconds
 
 
+_phase_owner: int | None = None     # the thread of phase_acc_start
+
+
 @contextlib.contextmanager
 def phase(name: str, level: int = 2):
-    """Wall-clock phase timer: 'name: N millis' at the given verbosity."""
-    t0 = time.monotonic()
-    try:
-        yield
-    finally:
-        dt = time.monotonic() - t0
-        if _phase_acc is not None:
-            _phase_acc[name] = _phase_acc.get(name, 0.0) + dt
-        verbose(level, "%s: %d millis\n" % (name, int(dt * 1000)))
+    """Wall-clock phase timer: 'name: N millis' at the given verbosity.
 
+    Adds to the accumulation only on the thread that started it, so a
+    helper thread's phases never overlap the main thread's; logs from any
+    thread.  While torch.profiler records, the phase is also a
+    record_function range named `name`."""
+    with (torch.profiler.record_function(name)
+          if torch.autograd._profiler_enabled()
+          else contextlib.nullcontext()):
+        t0 = time.monotonic()
+        try:
+            yield
+        finally:
+            dt = time.monotonic() - t0
+            if _phase_acc is not None \
+                    and threading.get_ident() == _phase_owner:
+                _phase_acc[name] = _phase_acc.get(name, 0.0) + dt
+            if verbosity() >= level:
+                verbose(level, "%s: %d millis\n" % (name, int(dt * 1000)))
 
 
 @contextlib.contextmanager
@@ -98,28 +114,3 @@ def trace(out_dir: str | None = None,
     prof.export_chrome_trace(os.path.join(
         target, f"trace.{os.getpid()}.{time.time_ns()}.json"))
     verbose(1, "profiler trace written to %s\n" % target)
-
-
-def _cuda_devices(out, found: set) -> set:
-    if isinstance(out, torch.Tensor):
-        if out.device.type == "cuda":
-            found.add(out.device)
-    elif isinstance(out, dict):
-        for v in out.values():
-            _cuda_devices(v, found)
-    elif isinstance(out, (list, tuple)):
-        for v in out:
-            _cuda_devices(v, found)
-    return found
-
-
-def device_timer(fn, *args, sync=True, **kwargs):
-    """Run fn(*args, **kwargs) and return (result, seconds); with sync, the
-    clock stops after torch.cuda.synchronize on every CUDA device of the
-    result's tensors (nested in tuples, lists and dicts)."""
-    t0 = time.monotonic()
-    out = fn(*args, **kwargs)
-    if sync:
-        for dev in _cuda_devices(out, set()):
-            torch.cuda.synchronize(dev)
-    return out, time.monotonic() - t0

@@ -9,7 +9,9 @@ other relatively, so a copy needs no import rewritten; the files that do
 differ are listed in DIFFERENCES, each intended difference by name with the
 lines of the REFERENCE file it replaces (1-based, inclusive; an insertion
 counts at the line it is inserted before), and the rest of the file is held
-equal.  A later change of either side then fails here, in one place.
+equal.  A passage that only moved under a new block is named in REINDENTED
+and held equal with each line's leading whitespace stripped.  A later
+change of either side then fails here, in one place.
 """
 
 import difflib
@@ -52,6 +54,10 @@ DIFFERENCES = {
     "utils/bench_workload.py": {
         "the C reference's file, without a machine's directory": [(322, 322)],
     },
+    "device/genome.py": {
+        "import of the phase timer": [(17, 17)],
+        "phase `genome: decode` opens at the cache miss": [(93, 93)],
+    },
     "native/__init__.py": {
         "header note: the lock and the build directory": [(3, 5)],
         "threading, and BUILD_DIR of the CUDA build": [(13, 13)],
@@ -62,6 +68,9 @@ DIFFERENCES = {
     "ops/seed_extend.py": {
         "GapAligner takes the band DP's device": [(114, 115)],
         "_band_batch returns the port's BandExtBatch": [(205, 210)],
+        "align composes align_seed and align_scan": [(473, 485)],
+        "align_prepare composes align_seed, align_scan and align_probs":
+            [(503, 527)],
     },
     "engines/score_chain.py": {
         "device argument": [(32, 36)],
@@ -74,6 +83,13 @@ DIFFERENCES = {
                                                     (1150, 1150)],
     },
     "engines/chain_cleaner.py": {
+        "import of the phase timer": [(47, 47)],
+        "phase `cleaner: prescore` opens in the python break loop": [
+            (1010, 1010)],
+        "phase `cleaner: net` opens around the in-memory netting": [
+            (1542, 1542), (1554, 1554), (1567, 1567)],
+        "root phase `chainCleaner`: the call's start, phase_add at each "
+        "return": [(1412, 1412), (1685, 1685), (1731, 1731)],
         "device argument, handed down": [(1359, 1359), (1370, 1370),
                                          (1387, 1387), (1406, 1406)],
         "scorer seam: torch_scorer_factory(device)": [(1418, 1422)],
@@ -82,7 +98,19 @@ DIFFERENCES = {
         "clean_chains_distributed on torch.distributed": [(1846, 1866)],
     },
     "engines/repeat_filler.py": {
-        "device argument, to the gap aligner": [(253, 255), (307, 307)],
+        "import of the phase timer": [(35, 35)],
+        "run_gap_job goes (GAT_RF_BATCH=0 runs chunks of one gap) for "
+        "_gap_jobs_chains, which runs each stage over a batch, one phase a "
+        "stage": [(145, 155)],
+        "GAT_RF_BATCH=0 runs chunks of one gap": [(211, 216)],
+        "_run_gap_jobs: a chunk through _gap_jobs_chains": [(219, 240)],
+        "root phase `repeatfiller`": [(243, 243)],
+        "device argument": [(253, 255)],
+        "phase `rf: read + harvest` opens": [(261, 261)],
+        "the gap aligner gets the device": [(307, 307)],
+        "every chunk's mini-chains, gathered before the splice": [
+            (310, 311)],
+        "phase `rf: splice + write` opens": [(309, 309)],
         "repeat_filler_main passes the CLI's device": [(331, 331),
                                                         (403, 403)],
     },
@@ -104,6 +132,27 @@ DIFFERENCES = {
     },
 }
 
+
+# file -> {passage that moved under a new block: [(first, last) line of the
+# reference]}; the block's opener is an intended difference above, and the
+# passage is held to the reference with each line's leading whitespace
+# stripped
+REINDENTED = {
+    "device/genome.py": {
+        "the decode, under `genome: decode`": [(93, 99)],
+    },
+    "engines/chain_cleaner.py": {
+        "the prescore, under `cleaner: prescore`": [(1010, 1010)],
+        "the in-memory netting, under `cleaner: net`": [(1542, 1542),
+                                                       (1554, 1573)],
+    },
+    "engines/repeat_filler.py": {
+        "the read, the filters, the harvest and the aligner, under "
+        "`rf: read + harvest`": [(261, 307)],
+        "the splice and the write, under `rf: splice + write`": [
+            (309, 328)],
+    },
+}
 
 def _lines(path):
     with open(path) as f:
@@ -146,26 +195,50 @@ def _inside(tag, i1, i2, ranges):
     return any(lo <= i1 + 1 and i2 <= hi for lo, hi in ranges)
 
 
+def _changes(ref, port):
+    """The opcodes of port against ref, diffed with each line's leading
+    whitespace stripped, that are not "equal"; a line that differs in its
+    indentation alone comes out as one "indent" opcode."""
+    out = []
+    for tag, i1, i2, j1, j2 in difflib.SequenceMatcher(
+            None, [ln.lstrip() for ln in ref], [ln.lstrip() for ln in port],
+            autojunk=False).get_opcodes():
+        if tag != "equal":
+            out.append((tag, i1, i2, j1, j2))
+            continue
+        out += [("indent", i, i + 1, j, j + 1)
+                for i, j in zip(range(i1, i2), range(j1, j2))
+                if ref[i] != port[j]]
+    return out
+
+
 @pytest.mark.parametrize("rel", PYTHON_COPIES)
 def test_python_copy_equals_the_reference(rel):
     ref, port = _lines(os.path.join(REF, rel)), _lines(os.path.join(PORT, rel))
     named = DIFFERENCES.get(rel, {})
-    changed = [(tag, i1, i2, j1, j2) for tag, i1, i2, j1, j2 in
-               difflib.SequenceMatcher(None, ref, port,
-                                       autojunk=False).get_opcodes()
-               if tag != "equal"]
+    moved = REINDENTED.get(rel, {})
     every = [r for ranges in named.values() for r in ranges]
+    shifted = every + [r for ranges in moved.values() for r in ranges]
+    changed = _changes(ref, port)
     stray = [(tag, f"reference lines {i1 + 1}-{i2}", port[j1:j2])
              for tag, i1, i2, j1, j2 in changed
-             if not _inside(tag, i1, i2, every)]
+             if not _inside(tag, i1, i2,
+                            shifted if tag == "indent" else every)]
     assert not stray, f"{rel} differs from the reference outside the " \
                       f"intended differences: {stray}"
-    # and no entry of the dictionary has gone stale
+    # and no entry of either dictionary has gone stale
     for what, ranges in named.items():
         for r in ranges:
             assert any(_inside(tag, i1, i2, [r])
-                       for tag, i1, i2, _, _ in changed), \
+                       for tag, i1, i2, _, _ in changed
+                       if tag != "indent"), \
                 f"{rel}: nothing differs at {r} ({what})"
+    for what, ranges in moved.items():
+        for r in ranges:
+            assert any(_inside(tag, i1, i2, [r])
+                       for tag, i1, i2, _, _ in changed
+                       if tag == "indent"), \
+                f"{rel}: nothing is re-indented at {r} ({what})"
 
 
 def test_every_engine_and_format_is_copied():
@@ -181,7 +254,8 @@ def test_every_engine_and_format_is_copied():
 
 
 @pytest.mark.parametrize("rel,first,last", [
-    ("utils/profiling.py", 24, 70),         # the phase timers
+    ("utils/profiling.py", 24, 41),         # the profile directory
+    ("utils/profiling.py", 43, 59),         # phase_acc_stop, phase_add
     ("parallel/distributed.py", 56, 65),    # shard_indices
     ("ops/rescore.py", 36, 42),             # _n_threads
     ("ops/rescore.py", 596, 710),           # the jax-free tail

@@ -83,3 +83,38 @@ def test_scorechain_thread_determinism(lite_workload, tmp_path):
         ["scoreChain", m["chain"], m["t2bit"], m["q2bit"],
          str(d / "out.chain"), "-linearGap=loose"], ["out.chain"]), tmp_path)
     assert outs[1] == outs[8]
+
+
+def test_chaincleaner_prescore_and_net_phases_nest(lite_workload, tmp_path):
+    """chainCleaner (window mode, the python break loop) on chr1-lite under
+    a phase accumulation: `cleaner: prescore` lies inside `break_loop`,
+    `cleaner: net` inside `net+find_breaks`, each phase inside the root
+    `chainCleaner`; the output keeps the C binaries' hash."""
+    from benchmark.lib import spans
+    from genomealignmenttools_tpu_torch.engines.chain_cleaner import \
+        clean_chains
+    from genomealignmenttools_tpu_torch.utils.verbose import set_verbosity
+    m = lite_workload
+    out = str(tmp_path / "out.chain")
+    set_verbosity(0)
+    rec = spans.start()
+    try:
+        clean_chains(m["chain"], m["t2bit"], m["q2bit"], out,
+                     str(tmp_path / "out.bed"), t_sizes=m["t_sizes"],
+                     q_sizes=m["q_sizes"], linear_gap="loose", device="cpu")
+    finally:
+        spans.stop(rec)
+    by_name = {}
+    for name, a, b in rec.intervals:
+        by_name.setdefault(name, []).append((a, b))
+    slack = 1e-3                # the recorder notes an end after the fact
+
+    def inside(inner, outer):
+        (lo, hi), = by_name[outer]
+        return by_name[inner] and all(lo - slack <= a and b <= hi + slack
+                                      for a, b in by_name[inner])
+
+    assert inside("cleaner: prescore", "break_loop")
+    assert inside("cleaner: net", "net+find_breaks")
+    assert all(inside(name, "chainCleaner") for name in by_name)
+    assert gc.sha256(out) == gc.lite_hashes()["c_out.chain.sha256"]

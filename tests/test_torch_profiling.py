@@ -1,11 +1,18 @@
-"""The port's profiler: -profile=dir on the port CLI, trace and device_timer.
+"""The port's profiler: -profile=dir on the port CLI, trace and the phase
+spans.
 
 On the CPU the trace holds CPU activity only; the scoreChain output under
-the profiler must stay byte-identical to the golden.
+the profiler must stay byte-identical to the golden.  The phases: each is a
+record_function range while torch.profiler records (and only then), a
+phase on a helper thread leaves the accumulation alone, and a RepeatFiller
+call is its stages one after another, each over a whole chunk of gaps.
 """
 
+import functools
+import io
 import json
 import os
+import threading
 
 import pytest
 import torch
@@ -13,6 +20,17 @@ import torch
 from genomealignmenttools_tpu_torch.cli.main import main as port_main
 from genomealignmenttools_tpu_torch.device import PERF, perf_reset
 from genomealignmenttools_tpu_torch.utils import profiling
+from benchmark.lib import spans
+
+
+def recorded(fn):
+    """fn() under the benchmark's phase recorder, which notes the
+    intervals the harness reads; returns (fn's result, the recorder)."""
+    rec = spans.start()
+    try:
+        return fn(), rec
+    finally:
+        spans.stop(rec)
 
 
 @pytest.fixture
@@ -54,9 +72,159 @@ def test_trace_is_a_noop_without_a_directory(tmp_path, no_profile_dir):
     assert len(os.listdir(tmp_path / "t")) == 1
 
 
-def test_device_timer_returns_result_and_time():
-    out, secs = profiling.device_timer(lambda a, b=1: (a + b, [a]),
-                                       torch.tensor([2]), b=3)
-    assert torch.equal(out[0], torch.tensor([5])) and secs >= 0.0
-    out, secs = profiling.device_timer(sum, [1, 2], sync=False)
-    assert out == 3 and secs >= 0.0
+def test_phase_is_a_range_only_while_the_profiler_records(monkeypatch):
+    made = []
+    real = torch.profiler.record_function
+
+    def counting(name, *args):
+        made.append(name)
+        return real(name, *args)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    with profiling.phase("idle profiler"):
+        torch.ones(3).sum()
+    assert made == []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiling.phase("outer"):
+            with profiling.phase("inner"):
+                torch.ones(3).sum()
+    assert made == ["outer", "inner"]
+
+
+def test_phase_on_another_thread_leaves_the_accumulation_alone(
+        monkeypatch):
+    from genomealignmenttools_tpu_torch.utils import verbose
+    log = io.StringIO()
+    monkeypatch.setattr(verbose, "_log_file", log)
+    monkeypatch.setattr(verbose, "_level", 2)
+
+    def helper():
+        with profiling.phase("helper"):
+            pass
+
+    def both():
+        with profiling.phase("main"):
+            t = threading.Thread(target=helper)
+            t.start()
+            t.join(timeout=60)
+            assert not t.is_alive()
+
+    _, rec = recorded(both)
+    assert rec.keys() == {"main"}
+    assert [n for n, _, _ in rec.intervals] == ["main"]
+    # the helper's phase still logs
+    assert "helper: " in log.getvalue() and "main: " in log.getvalue()
+
+
+def test_phase_formats_no_line_below_its_verbosity(monkeypatch):
+    from genomealignmenttools_tpu_torch.utils import verbose
+    said = []
+    monkeypatch.setattr(profiling, "verbose",
+                        lambda level, msg: said.append(msg))
+    monkeypatch.setattr(verbose, "_level", 1)
+    with profiling.phase("quiet"):
+        pass
+    assert said == []
+    monkeypatch.setattr(verbose, "_level", 2)
+    with profiling.phase("loud"):
+        pass
+    assert len(said) == 1 and said[0].startswith("loud: ")
+
+
+# --- RepeatFiller's stages ----------------------------------------------
+
+RF_STAGES = ["rf: seed", "rf: hsp scan", "rf: band problems",
+             "band: host batch", "rf: gapped finish", "rf: chain"]
+
+
+@pytest.fixture(scope="module")
+def rf24(tmp_path_factory):
+    from genomealignmenttools_tpu_torch.utils.bench_workload import \
+        build_repeatfiller_workload
+    return build_repeatfiller_workload(str(tmp_path_factory.mktemp("rf24")),
+                                       n_gaps=24)
+
+
+def _rf(m, **kw):
+    from genomealignmenttools_tpu_torch.engines import repeat_filler as rf
+    out = io.StringIO()
+    rf.repeat_filler(m["chain"], m["t2bit"], m["q2bit"], out, device="cpu",
+                     **kw)
+    return out.getvalue()
+
+
+@pytest.mark.parametrize("chunk", [4096, 10])
+def test_repeatfiller_phases_are_its_stages_once_a_chunk(rf24, chunk,
+                                                         monkeypatch):
+    """Every stage runs over a whole chunk of gaps before the next, as one
+    phase; the stages follow each other inside the root phase and cover
+    it.  The band DP runs as the host band batch (GAT_BAND=host), which
+    gives the same bytes as K3 and its plain version, fast on the CPU."""
+    from genomealignmenttools_tpu_torch.engines import repeat_filler as rf
+    monkeypatch.setenv("GAT_BAND", "host")
+    monkeypatch.setattr(rf, "_run_gap_jobs",
+                        functools.partial(rf._run_gap_jobs, chunk=chunk))
+    out, rec = recorded(lambda: _rf(rf24))
+    (root,) = [(a, b) for n, a, b in rec.intervals if n == "repeatfiller"]
+    staged = [(n, a, b) for n, a, b in rec.intervals
+              if n.startswith(("rf: ", "band: "))]
+    n_chunks = -(-24 // chunk)
+    assert [n for n, _, _ in staged] == (["rf: read + harvest"]
+                                         + RF_STAGES * n_chunks
+                                         + ["rf: splice + write"])
+    for (_, _, b0), (_, a1, _) in zip(staged, staged[1:]):
+        assert b0 <= a1                             # one after another
+    slack = 1e-3                # the recorder notes an end after the fact
+    assert all(root[0] - slack <= a and b <= root[1] + slack
+               for _, a, b in staged)
+    covered = sum(b - a for _, a, b in staged)
+    assert covered >= 0.9 * (root[1] - root[0])
+    assert out.count("chain ") >= 1
+
+
+def test_repeatfiller_phases_one_set_a_gap_and_the_same_bytes(
+        rf24, fixtures_dir, golden_dir, monkeypatch):
+    """GAT_RF_BATCH=0 runs the same stages one gap at a time, and gives
+    the batched path's bytes; the quirks run keeps the golden's bytes
+    under an accumulation."""
+    monkeypatch.setenv("GAT_BAND", "host")
+    batched = _rf(rf24)
+    monkeypatch.setenv("GAT_RF_BATCH", "0")
+    sequential, rec = recorded(lambda: _rf(rf24))
+    assert sequential == batched
+    names = [n for n, _, _ in rec.intervals]
+    assert all(names.count(stage) == 24 for stage in RF_STAGES)
+    monkeypatch.delenv("GAT_RF_BATCH")
+    monkeypatch.delenv("GAT_BAND")
+    f = lambda n: os.path.join(fixtures_dir, n)  # noqa: E731
+    quirks, rec = recorded(lambda: _rf(
+        {"chain": f("repeatfiller_input.chain"), "t2bit": f("target.2bit"),
+         "q2bit": f("query.2bit")}, ref_quirks=True))
+    with open(os.path.join(golden_dir,
+                           "repeatfiller_reference_output.chain")) as g:
+        assert quirks == g.read()
+    assert {"repeatfiller", "rf: seed", "band: DP + fetch",
+            "rf: chain"} <= rec.keys()
+
+
+def test_repeatfiller_phases_are_user_annotations_in_the_trace(
+        fixtures_dir, tmp_path):
+    """Under a CPU torch.profiler.profile every phase of a RepeatFiller
+    call (K3's plain version on the fixture's gaps) is a range of the same
+    name in the Chrome trace."""
+    f = lambda n: os.path.join(fixtures_dir, n)  # noqa: E731
+    m = {"chain": f("repeatfiller_input.chain"), "t2bit": f("target.2bit"),
+         "q2bit": f("query.2bit")}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _, rec = recorded(lambda: _rf(m))
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    ranges = {e["name"] for e in events
+              if e.get("cat") == "user_annotation" and e.get("ph") == "X"}
+    assert {"repeatfiller", "rf: read + harvest", "rf: seed",
+            "band: DP + fetch", "rf: splice + write"} <= rec.keys()
+    assert rec.keys() <= ranges
