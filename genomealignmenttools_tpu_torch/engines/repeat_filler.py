@@ -27,10 +27,12 @@ import sys
 
 import numpy as np
 
+from ..device import PERF
 from ..device.genome import open_genome
 from ..formats.chain import Chain
 from ..formats.gapcalc import gap_calc_from_file
 from ..formats.scorematrix import score_scheme_default
+from ..ops.chain_pairs import chain_gap_hsps
 from ..ops.seed_extend import GapAligner
 from ..utils.profiling import phase
 from .axt_chain import chain_pair, SeqPair
@@ -175,6 +177,12 @@ def _gap_jobs_chains(batch, t_genome, q_genome, aligner, scheme, gap_calc,
                 state, exts_all[p0:p0 + len(probs)]))
             p0 += len(probs)
     with phase("rf: chain"):
+        chains = chain_gap_hsps(batch, hsps_all, ctxs, scheme, gap_calc,
+                                axt_chain_min_score)
+        if chains is not None:
+            PERF["rf_chain_native_pairs"] += len(batch)
+            return chains
+        PERF["rf_chain_python_pairs"] += len(batch)
         return [_gap_job_chains(job, hsps, *ctx, scheme, gap_calc,
                                 axt_chain_min_score)
                 for job, hsps, ctx in zip(batch, hsps_all, ctxs)]

@@ -39,7 +39,8 @@ _SRCS = [os.path.join(_DIR, "chaincodec.cpp"),
          os.path.join(_DIR, "netscan.cpp"),
          os.path.join(_DIR, "breakloop.cpp"),
          os.path.join(_DIR, "hspscan.cpp"),
-         os.path.join(_DIR, "bandext.cpp")]
+         os.path.join(_DIR, "bandext.cpp"),
+         os.path.join(_DIR, "chainpairs.cpp")]
 
 _lib = None
 _tried = False

@@ -58,9 +58,10 @@ libtsan.so> with GAT_NATIVE_SO naming the build, GAT_THREADS=8 and
 CUDA_VISIBLE_DEVICES= (CUDA does not run under TSAN's shadow mappings): the
 port's chainCleaner, chainNet -rescore and scoreChain on
 build_cleaner_workload(200 scenarios, 3,000 bulk chains) with
-GAT_RESCORE=hostnative, then RepeatFiller on 120 gaps with GAT_BAND=host.
-A race report (a "WARNING: ThreadSanitizer" line, or TSAN's exit code 66)
-fails the run.
+GAT_RESCORE=hostnative, then RepeatFiller on 120 gaps with GAT_BAND=host
+(the threaded HSP scan, the host band batch and the chaining of every gap
+in one native call, which the child checks ran).  A race report (a
+"WARNING: ThreadSanitizer" line, or TSAN's exit code 66) fails the run.
 
 Imports nothing of jax and nothing of the JAX package.
 """
@@ -1013,6 +1014,7 @@ def tsan_env(so: str, base: dict | None = None) -> dict:
 def tsan_child(work: str) -> int:
     """The replay of tools/tsan_check.sh through the port's engines."""
     from . import native
+    from .device import PERF
     from .engines.chain_cleaner import clean_chains
     from .engines.chain_net import chain_net
     from .engines.repeat_filler import repeat_filler
@@ -1053,7 +1055,10 @@ def tsan_child(work: str) -> int:
     t0 = time.monotonic()
     repeat_filler(rf["chain"], rf["t2bit"], rf["q2bit"],
                   os.path.join(d, "rf.chain"))
-    steps.append(("RepeatFiller (hspscan + bandext)", time.monotonic() - t0))
+    if PERF["rf_chain_python_pairs"] or not PERF["rf_chain_native_pairs"]:
+        raise RuntimeError("RepeatFiller did not chain its gaps natively")
+    steps.append(("RepeatFiller (hspscan + bandext + chainpairs)",
+                  time.monotonic() - t0))
     for name, secs in steps:
         print(f"[tsan] {name} under TSAN: done, {secs:.3f} s", flush=True)
     print(json.dumps({"steps": dict(steps), "foreign": foreign_modules()}),

@@ -122,11 +122,13 @@ def test_gat_native_so_names_a_prebuilt_library(tmp_path):
 
 
 def test_native_sources_are_found_beside_the_loader():
-    """The loader finds its sources by __file__: all ten, in the port's own
+    """The loader finds its sources by __file__: all eleven (the
+    reference's ten and the port's own chainpairs.cpp), in the port's own
     native/ directory, and the library goes to the port's build/."""
     from genomealignmenttools_tpu_torch import _build, native
     here = os.path.join(REPO, "genomealignmenttools_tpu_torch", "native")
-    assert len(native._SRCS) == 10
+    assert len(native._SRCS) == 11
+    assert os.path.join(here, "chainpairs.cpp") in native._SRCS
     assert all(os.path.dirname(s) == here and os.path.exists(s)
                for s in native._SRCS)
     assert os.path.dirname(native._SO) == _build.BUILD_DIR
