@@ -19,10 +19,13 @@ import torch
 # band_out_of_band those whose traceback left the band;
 # rf_chain_native_pairs and rf_chain_python_pairs count RepeatFiller's gaps
 # chained by the native batch (ops/chain_pairs.py) and by the per-gap
-# Python fallback.
+# Python fallback; chainnet_fills counts the fill lines chainNet wrote on
+# the target side, chainnet_rescored_fills the partial target fills that
+# -rescore scored exactly, on whichever path scored them.
 PERF = {"h2d_bytes": 0, "d2h_bytes": 0, "dispatches": 0,
         "combine_overflow": 0, "band_problems": 0, "band_out_of_band": 0,
-        "rf_chain_native_pairs": 0, "rf_chain_python_pairs": 0}
+        "rf_chain_native_pairs": 0, "rf_chain_python_pairs": 0,
+        "chainnet_fills": 0, "chainnet_rescored_fills": 0}
 
 # Kernel launch counters, one per hand-written kernel, and for K2 one per
 # row source: `pair_combine` counts its entries from int32 sums and from int8

@@ -28,6 +28,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..device import PERF
 from ..device.genome import open_genome
 from ..formats.chain import Chain, iter_chains
 from ..formats.chromsizes import read_chrom_sizes
@@ -316,20 +317,24 @@ class Netter:
             for fill in chrom.root.fills:
                 yield from walk(fill)
 
-    def output_side(self, out, is_q: bool, rescorer=None) -> None:
+    def output_side(self, out, is_q: bool, rescorer=None) -> int:
+        """Write one side; returns the fill lines written."""
         chroms = self.q_chroms if is_q else self.t_chroms
+        self._fills_out = 0
         for chrom in chroms.values():
             if not chrom.has_data():
                 continue
             out.write(f"net {chrom.name} {chrom.size}\n")
             for fill in chrom.root.fills:
                 self._out_fill(out, fill, 1, is_q, rescorer)
+        return self._fills_out
 
     def _out_fill(self, out, fill: _Fill, depth: int, is_q: bool, rescorer):
         chain = fill.chain
         sub_size, sub_score = self._subchain_info(chain, fill.start, fill.end,
                                                   is_q, rescorer)
         if sub_score >= self.min_score and sub_size >= self.min_fill:
+            self._fills_out += 1
             o_chrom = chain.t_name if is_q else chain.q_name
             out.write(" " * depth +
                       f"fill {fill.start} {fill.end - fill.start} {o_chrom} "
@@ -527,7 +532,8 @@ class NativeNetTree:
             lib.gat_free_buffer(p)
 
     def output_side(self, out, is_q: bool, rescorer=None,
-                    score_override=None) -> None:
+                    score_override=None) -> int:
+        """Write one side; returns the fill lines written."""
         from ..native import get_lib
         lib = get_lib()
         if lib is not None and hasattr(lib, "gat_net_write") and \
@@ -542,10 +548,12 @@ class NativeNetTree:
                 out.write(mv)  # binary sink: zero-copy
             else:
                 out.write(bytes(mv).decode())
-            return
+            nodes, segs = self._side(is_q)[:2]
+            return _fill_lines(mv, nodes, len(segs))
         nodes_arr, segs, names, sizes = self._side(is_q)
         nodes = nodes_arr.tolist()  # plain ints: ~5x faster walk
         chains = self.chains
+        fills = 0
         parts: list[str] = []
         app = parts.append
         for ci, lo, hi in segs:
@@ -565,6 +573,7 @@ class NativeNetTree:
                 sub_size, sub_score = _subchain_info(
                     chain, s, e, is_q, rescorer)
                 if sub_score >= self.min_score and sub_size >= self.min_fill:
+                    fills += 1
                     app(" " * depth +
                         f"fill {s} {e - s} {o_chrom} {chain.q_strand} "
                         f"{os_} {oe - os_} id {chain.id} "
@@ -580,6 +589,20 @@ class NativeNetTree:
                 parts = []
                 app = parts.append
         out.write("".join(parts))
+        return fills
+
+
+def _fill_lines(text, nodes: np.ndarray, n_nets: int) -> int:
+    """The fill lines of one side's net text as the native writer wrote it
+    from `nodes`: every fill node, unless a fill failed the output
+    thresholds and took its subtree with it (then counted by depth)."""
+    fills = nodes[:, 0] == 0
+    data = np.frombuffer(text, np.uint8)
+    if int(np.count_nonzero(data == 10)) == n_nets + nodes.shape[0]:
+        return int(np.count_nonzero(fills))
+    raw = bytes(text)
+    return sum(raw.count(b"\n" + b" " * int(d) + b"fill ")
+               for d in np.unique(nodes[fills, 1]))
 
 
 class LazyChains:
@@ -886,69 +909,68 @@ def chain_net(chain_file: str, t_sizes_file: str, q_sizes_file: str,
                          open_genome(q_2bit))
 
         def rescorer(chain: Chain, start: int, end: int) -> float:
+            PERF["chainnet_rescored_fills"] += 1
             return scorer.global_score(chain.subset_on_t(start, end))
     else:
         rescorer = None
 
-    import time as _time
+    from ..utils.profiling import phase
+    with phase("chainnet: parse"):
+        t_sizes = read_chrom_sizes(t_sizes_file)
+        q_sizes = read_chrom_sizes(q_sizes_file)
+        from ..formats.chain import read_chains
+        from ..native.chain_io import ChainTable
+        table = None
+        if isinstance(chain_file, ChainTable):  # SoA path (chainCleaner shares)
+            table = chain_file
+        elif isinstance(chain_file, list):  # pre-parsed (chainCleaner shares)
+            all_chains = chain_file
+        elif isinstance(chain_file, str):
+            from ..native.chain_io import parse_chain_table
+            try:
+                if chain_file.endswith(".gz"):
+                    import gzip as _gz
+                    with _gz.open(chain_file, "rb") as fh:
+                        _data = fh.read()
+                else:
+                    with open(chain_file, "rb") as fh:
+                        _data = fh.read()
+                table = parse_chain_table(_data)
+                del _data
+            except OSError:
+                table = None
+            if table is None:
+                all_chains = read_chains(chain_file)
+        else:
+            all_chains = list(iter_chains(chain_file))
+        if table is not None:
+            scores = table.scores
+            if scores.shape[0] and np.any(np.diff(scores) > 0):
+                raise ValueError("input chains must be sorted in order of score")
+            below = np.flatnonzero(scores < min_score)
+            cutoff = int(below[0]) if below.size else scores.shape[0]
+            kept_sel = np.arange(cutoff)
 
-    from ..utils.profiling import phase_add
-    _pt = _time.monotonic()
-    t_sizes = read_chrom_sizes(t_sizes_file)
-    q_sizes = read_chrom_sizes(q_sizes_file)
-    from ..formats.chain import read_chains
-    from ..native.chain_io import ChainTable
-    table = None
-    if isinstance(chain_file, ChainTable):  # SoA path (chainCleaner shares)
-        table = chain_file
-    elif isinstance(chain_file, list):  # pre-parsed (chainCleaner shares)
-        all_chains = chain_file
-    elif isinstance(chain_file, str):
-        from ..native.chain_io import parse_chain_table
-        try:
-            if chain_file.endswith(".gz"):
-                import gzip as _gz
-                with _gz.open(chain_file, "rb") as fh:
-                    _data = fh.read()
-            else:
-                with open(chain_file, "rb") as fh:
-                    _data = fh.read()
-            table = parse_chain_table(_data)
-            del _data
-        except OSError:
-            table = None
-        if table is None:
-            all_chains = read_chains(chain_file)
-    else:
-        all_chains = list(iter_chains(chain_file))
-    if table is not None:
-        scores = table.scores
-        if scores.shape[0] and np.any(np.diff(scores) > 0):
-            raise ValueError("input chains must be sorted in order of score")
-        below = np.flatnonzero(scores < min_score)
-        cutoff = int(below[0]) if below.size else scores.shape[0]
-        kept_sel = np.arange(cutoff)
-
-        def build_netter_table(sel, sides=3):
-            nt = _native_net_tree_table(
-                table, sel, t_sizes, q_sizes, min_space=min_space,
-                min_fill=min_fill, min_score=min_score, incl_hap=incl_hap,
-                sides=sides)
-            if nt is None:
-                return build_netter([table.materialize(int(i))
-                                     for i in sel])
-            return nt
-    else:
-        last_score = -1.0
-        kept: list[Chain] = []
-        for chain in all_chains:
-            if last_score >= 0 and chain.score > last_score:
-                raise ValueError(
-                    "input chains must be sorted in order of score")
-            last_score = chain.score
-            if chain.score < min_score:
-                break
-            kept.append(chain)
+            def build_netter_table(sel, sides=3):
+                nt = _native_net_tree_table(
+                    table, sel, t_sizes, q_sizes, min_space=min_space,
+                    min_fill=min_fill, min_score=min_score, incl_hap=incl_hap,
+                    sides=sides)
+                if nt is None:
+                    return build_netter([table.materialize(int(i))
+                                         for i in sel])
+                return nt
+        else:
+            last_score = -1.0
+            kept: list[Chain] = []
+            for chain in all_chains:
+                if last_score >= 0 and chain.score > last_score:
+                    raise ValueError(
+                        "input chains must be sorted in order of score")
+                last_score = chain.score
+                if chain.score < min_score:
+                    break
+                kept.append(chain)
 
     def build_netter(chains):
         nt = _native_net_tree(chains, t_sizes, q_sizes, min_space=min_space,
@@ -963,163 +985,164 @@ def chain_net(chain_file: str, t_sizes_file: str, q_sizes_file: str,
             nt.finish()
         return nt
 
-    phase_add("parse", _time.monotonic() - _pt)
-    _pt = _time.monotonic()
-    q_netter = None
-    if num_shards > 1:
-        # per-side chromosome shard: the sweep only needs the chains that
-        # live on this shard's chromosomes for the side being emitted
-        from ..parallel.distributed import shard_indices
-        t_names = list(t_sizes)
-        q_names = list(q_sizes)
-        t_idx = shard_indices(len(t_names), num_shards, shard)
-        q_idx = shard_indices(len(q_names), num_shards, shard)
-        my_t = set(t_names[t_idx.start:t_idx.stop])
-        my_q = set(q_names[q_idx.start:q_idx.stop])
-        if table is not None:
-            (t_fac_ids, t_fac_names), (q_fac_ids, q_fac_names) = \
-                table.names_factorized()
-            t_in = np.array([nm in my_t for nm in t_fac_names], bool)
-            q_in = np.array([nm in my_q for nm in q_fac_names], bool)
-            netter = build_netter_table(kept_sel[t_in[t_fac_ids[kept_sel]]],
-                                        sides=1)
-            if q_net_out is not None:
-                q_netter = build_netter_table(
-                    kept_sel[q_in[q_fac_ids[kept_sel]]], sides=2)
+    with phase("chainnet: net sweep"):
+        q_netter = None
+        if num_shards > 1:
+            # per-side chromosome shard: the sweep only needs the chains that
+            # live on this shard's chromosomes for the side being emitted
+            from ..parallel.distributed import shard_indices
+            t_names = list(t_sizes)
+            q_names = list(q_sizes)
+            t_idx = shard_indices(len(t_names), num_shards, shard)
+            q_idx = shard_indices(len(q_names), num_shards, shard)
+            my_t = set(t_names[t_idx.start:t_idx.stop])
+            my_q = set(q_names[q_idx.start:q_idx.stop])
+            if table is not None:
+                (t_fac_ids, t_fac_names), (q_fac_ids, q_fac_names) = \
+                    table.names_factorized()
+                t_in = np.array([nm in my_t for nm in t_fac_names], bool)
+                q_in = np.array([nm in my_q for nm in q_fac_names], bool)
+                netter = build_netter_table(kept_sel[t_in[t_fac_ids[kept_sel]]],
+                                            sides=1)
+                if q_net_out is not None:
+                    q_netter = build_netter_table(
+                        kept_sel[q_in[q_fac_ids[kept_sel]]], sides=2)
+            else:
+                netter = build_netter([c for c in kept if c.t_name in my_t])
+                if q_net_out is not None:
+                    q_netter = build_netter(
+                        [c for c in kept if c.q_name in my_q])
+        elif table is not None:
+            netter = build_netter_table(
+                kept_sel, sides=3 if q_net_out is not None else 1)
+            q_netter = netter
         else:
-            netter = build_netter([c for c in kept if c.t_name in my_t])
-            if q_net_out is not None:
-                q_netter = build_netter(
-                    [c for c in kept if c.q_name in my_q])
-    elif table is not None:
-        netter = build_netter_table(
-            kept_sel, sides=3 if q_net_out is not None else 1)
-        q_netter = netter
-    else:
-        netter = build_netter(kept)
-        q_netter = netter
-    phase_add("net_sweep", _time.monotonic() - _pt)
-    _pt = _time.monotonic()
-    t_override = None
-    if rescorer is not None and hasattr(scorer, "score_chains"):
-        # exact sub-net rescoring, fully batched: every fill's target-side
-        # sub-chain is cut on host and the whole set is scored in one
-        # device round trip (the -rescore hook, chainNet.c:832-835, is
-        # per-fill sequential in the reference)
-        native_tree = isinstance(netter, NativeNetTree)
-        dev = getattr(scorer, "_dev", None)
-        host_backed = dev is not None and getattr(dev, "host_native", False)
-        lib = None
-        if native_tree and host_backed and \
-                isinstance(netter.chains, LazyChains):
-            from ..native import get_lib
-            lib = get_lib()
-            if lib is not None and not hasattr(lib, "gat_subset_scores"):
-                lib = None
-        if lib is not None:
-            # all-host fast path: every non-full-cover fill becomes one
-            # (chain_row, start, end) job for the fused native
-            # subset+score pass; no python Chain/subset objects at all
-            from ..ops.rescore import (lut25_of, native_subset_scores,
-                                       table_row_code_ptrs)
-            nodes = netter.nodes_t
-            fill_idx = np.flatnonzero(nodes[:, 0] == 0)
-            cidx = nodes[fill_idx, 6]
-            s_arr = nodes[fill_idx, 2]
-            e_arr = nodes[fill_idx, 3]
-            headers = netter._chain_arrays()[2]  # (tS,tE,qS,qE,qSize)
-            partial = ~((s_arr <= headers[cidx, 0])
-                        & (e_arr >= headers[cidx, 1]))
-            jobs = np.stack([cidx[partial], s_arr[partial],
-                             e_arr[partial]], axis=1)
-            chains_fac = netter.chains  # LazyChains over (table, sel)
-            t_ptrs, q_ptrs, keepalive = table_row_code_ptrs(
-                chains_fac.table, chains_fac.sel,
-                scorer.t_genome, scorer.q_genome)
-            out = native_subset_scores(
-                lib, netter._blocks, netter._block_off, t_ptrs, q_ptrs,
-                lut25_of(scorer.scheme.lut), scorer.gap_calc, jobs)
-            del keepalive
-            t_override = np.full(nodes.shape[0], np.nan)
-            exists = out[:, 3] != 0
-            t_override[fill_idx[partial][exists]] = \
-                out[exists, 0].astype(np.float64)
+            netter = build_netter(kept)
+            q_netter = netter
+    with phase("chainnet: rescore fills"):
+        t_override = None
+        if rescorer is not None and hasattr(scorer, "score_chains"):
+            # exact sub-net rescoring, fully batched: every fill's target-side
+            # sub-chain is cut on host and the whole set is scored in one
+            # device round trip (the -rescore hook, chainNet.c:832-835, is
+            # per-fill sequential in the reference)
+            native_tree = isinstance(netter, NativeNetTree)
+            dev = getattr(scorer, "_dev", None)
+            host_backed = dev is not None and getattr(dev, "host_native", False)
+            lib = None
+            if native_tree and host_backed and \
+                    isinstance(netter.chains, LazyChains):
+                from ..native import get_lib
+                lib = get_lib()
+                if lib is not None and not hasattr(lib, "gat_subset_scores"):
+                    lib = None
+            if lib is not None:
+                # all-host fast path: every non-full-cover fill becomes one
+                # (chain_row, start, end) job for the fused native
+                # subset+score pass; no python Chain/subset objects at all
+                from ..ops.rescore import (lut25_of, native_subset_scores,
+                                           table_row_code_ptrs)
+                nodes = netter.nodes_t
+                fill_idx = np.flatnonzero(nodes[:, 0] == 0)
+                cidx = nodes[fill_idx, 6]
+                s_arr = nodes[fill_idx, 2]
+                e_arr = nodes[fill_idx, 3]
+                headers = netter._chain_arrays()[2]  # (tS,tE,qS,qE,qSize)
+                partial = ~((s_arr <= headers[cidx, 0])
+                            & (e_arr >= headers[cidx, 1]))
+                jobs = np.stack([cidx[partial], s_arr[partial],
+                                 e_arr[partial]], axis=1)
+                chains_fac = netter.chains  # LazyChains over (table, sel)
+                t_ptrs, q_ptrs, keepalive = table_row_code_ptrs(
+                    chains_fac.table, chains_fac.sel,
+                    scorer.t_genome, scorer.q_genome)
+                out = native_subset_scores(
+                    lib, netter._blocks, netter._block_off, t_ptrs, q_ptrs,
+                    lut25_of(scorer.scheme.lut), scorer.gap_calc, jobs)
+                del keepalive
+                t_override = np.full(nodes.shape[0], np.nan)
+                exists = out[:, 3] != 0
+                t_override[fill_idx[partial][exists]] = \
+                    out[exists, 0].astype(np.float64)
+                PERF["chainnet_rescored_fills"] += int(exists.sum())
 
-            def rescorer(chain: Chain, start: int, end: int) -> float:
-                return scorer.global_score(chain.subset_on_t(start, end))
+                def rescorer(chain: Chain, start: int, end: int) -> float:
+                    return scorer.global_score(chain.subset_on_t(start, end))
+            else:
+                jobs = []
+                keys: list[tuple[int, int, int]] = []
+                idxs: list[int] = []
+                fill_iter = (netter.iter_fills_idx(is_q=False) if native_tree
+                             else ((None, f)
+                                   for f in netter.iter_fills(is_q=False)))
+                for idx, fill in fill_iter:
+                    chain = fill.chain
+                    if fill.start <= chain.t_start and fill.end >= chain.t_end:
+                        continue  # full cover: chain.score is used directly
+                    sub = chain.subset_on_t(fill.start, fill.end)
+                    if sub is None:
+                        continue
+                    jobs.append(sub)
+                    keys.append((chain, fill.start, fill.end))
+                    idxs.append(idx)
+                scored = scorer.score_chains(jobs)
+                PERF["chainnet_rescored_fills"] += len(jobs)
+                if native_tree:
+                    # node-indexed score overrides feed the native writer
+                    t_override = np.full(netter.nodes_t.shape[0], np.nan)
+                    for idx, s_ in zip(idxs, scored):
+                        t_override[idx] = s_[0]
+                # key on (id, start, end) but pin the chain object in the value
+                # so a GC'd chain can never alias a reused id()
+                by_key = {(id(c), s, e): (c, s_[0])
+                          for (c, s, e), s_ in zip(keys, scored)}
+
+                def rescorer(chain: Chain, start: int, end: int,
+                             _by_key=by_key) -> float:
+                    hit = _by_key.get((id(chain), start, end))
+                    if hit is not None and hit[0] is chain:
+                        return hit[1]
+                    return scorer.global_score(chain.subset_on_t(start, end))
+    with phase("chainnet: write"):
+        if isinstance(netter, NativeNetTree):
+            import os as _os
+            if (q_net_out is not None and q_netter is netter
+                    and q_net_out is not t_net_out
+                    and _os.environ.get("GAT_THREADS") != "1"):
+                # the two side writers are independent reads over the same
+                # tree and each native gat_net_write call releases the GIL:
+                # overlap them (shared caches built up front so the worker
+                # thread only reads)
+                import threading as _threading
+                netter._chain_arrays()
+                q_err: list[BaseException] = []
+
+                def _q_side():
+                    try:
+                        q_netter.output_side(q_net_out, is_q=True,
+                                             rescorer=None)
+                    except BaseException as e:  # re-raised on the main thread
+                        q_err.append(e)
+
+                th = _threading.Thread(target=_q_side)
+                th.start()
+                PERF["chainnet_fills"] += netter.output_side(
+                    t_net_out, is_q=False, rescorer=rescorer,
+                    score_override=t_override)
+                th.join()
+                if q_err:
+                    raise q_err[0]
+            else:
+                PERF["chainnet_fills"] += netter.output_side(
+                    t_net_out, is_q=False, rescorer=rescorer,
+                    score_override=t_override)
+                if q_net_out is not None:
+                    q_netter.output_side(q_net_out, is_q=True, rescorer=None)
         else:
-            jobs = []
-            keys: list[tuple[int, int, int]] = []
-            idxs: list[int] = []
-            fill_iter = (netter.iter_fills_idx(is_q=False) if native_tree
-                         else ((None, f)
-                               for f in netter.iter_fills(is_q=False)))
-            for idx, fill in fill_iter:
-                chain = fill.chain
-                if fill.start <= chain.t_start and fill.end >= chain.t_end:
-                    continue  # full cover: chain.score is used directly
-                sub = chain.subset_on_t(fill.start, fill.end)
-                if sub is None:
-                    continue
-                jobs.append(sub)
-                keys.append((chain, fill.start, fill.end))
-                idxs.append(idx)
-            scored = scorer.score_chains(jobs)
-            if native_tree:
-                # node-indexed score overrides feed the native writer
-                t_override = np.full(netter.nodes_t.shape[0], np.nan)
-                for idx, s_ in zip(idxs, scored):
-                    t_override[idx] = s_[0]
-            # key on (id, start, end) but pin the chain object in the value
-            # so a GC'd chain can never alias a reused id()
-            by_key = {(id(c), s, e): (c, s_[0])
-                      for (c, s, e), s_ in zip(keys, scored)}
-
-            def rescorer(chain: Chain, start: int, end: int,
-                         _by_key=by_key) -> float:
-                hit = _by_key.get((id(chain), start, end))
-                if hit is not None and hit[0] is chain:
-                    return hit[1]
-                return scorer.global_score(chain.subset_on_t(start, end))
-    phase_add("rescore_fills", _time.monotonic() - _pt)
-    _pt = _time.monotonic()
-    if isinstance(netter, NativeNetTree):
-        import os as _os
-        if (q_net_out is not None and q_netter is netter
-                and q_net_out is not t_net_out
-                and _os.environ.get("GAT_THREADS") != "1"):
-            # the two side writers are independent reads over the same
-            # tree and each native gat_net_write call releases the GIL:
-            # overlap them (shared caches built up front so the worker
-            # thread only reads)
-            import threading as _threading
-            netter._chain_arrays()
-            q_err: list[BaseException] = []
-
-            def _q_side():
-                try:
-                    q_netter.output_side(q_net_out, is_q=True,
-                                         rescorer=None)
-                except BaseException as e:  # re-raised on the main thread
-                    q_err.append(e)
-
-            th = _threading.Thread(target=_q_side)
-            th.start()
-            netter.output_side(t_net_out, is_q=False, rescorer=rescorer,
-                               score_override=t_override)
-            th.join()
-            if q_err:
-                raise q_err[0]
-        else:
-            netter.output_side(t_net_out, is_q=False, rescorer=rescorer,
-                               score_override=t_override)
+            PERF["chainnet_fills"] += netter.output_side(
+                t_net_out, is_q=False, rescorer=rescorer)
             if q_net_out is not None:
                 q_netter.output_side(q_net_out, is_q=True, rescorer=None)
-    else:
-        netter.output_side(t_net_out, is_q=False, rescorer=rescorer)
-        if q_net_out is not None:
-            q_netter.output_side(q_net_out, is_q=True, rescorer=None)
-    phase_add("write", _time.monotonic() - _pt)
 
 
 def chain_net_main(argv: list[str], device=None) -> int:

@@ -83,8 +83,20 @@ DIFFERENCES = {
         "scorer seam: torch_scorer_factory(device)": [(49, 52)],
     },
     "engines/chain_net.py": {
+        "import of the PERF counters": [(31, 31)],
+        "each side's writer returns the fill lines it wrote": [
+            (319, 321), (327, 327), (333, 333), (530, 530), (545, 545),
+            (549, 549), (568, 568), (583, 583)],
         "device argument": [(862, 864)],
         "scorer seam: torch_scorer_factory(device)": [(879, 880)],
+        "counter `chainnet_rescored_fills` on each path that scores a "
+        "partial fill": [(886, 886), (1044, 1044), (1065, 1065)],
+        "phases `chainnet: parse`, `chainnet: net sweep`, `chainnet: "
+        "rescore fills` and `chainnet: write` open where phase_add closed "
+        "the generic ones": [(890, 893), (963, 964), (998, 999),
+                             (1081, 1082), (1119, 1119)],
+        "counter `chainnet_fills`: the target side's fill lines": [
+            (1105, 1105), (1111, 1111), (1116, 1116)],
         "chain_net_main passes the CLI's device": [(1122, 1122),
                                                     (1150, 1150)],
     },
@@ -150,6 +162,13 @@ DIFFERENCES = {
 REINDENTED = {
     "device/genome.py": {
         "the decode, under `genome: decode`": [(93, 99)],
+    },
+    "engines/chain_net.py": {
+        "the parse, under `chainnet: parse`": [(894, 948)],
+        "the net sweep, under `chainnet: net sweep`": [(965, 997)],
+        "the fills' subsets and the scorer call, under `chainnet: rescore "
+        "fills`": [(1000, 1080)],
+        "both sides' writers, under `chainnet: write`": [(1083, 1118)],
     },
     "engines/chain_cleaner.py": {
         "the prescore, under `cleaner: prescore`": [(1010, 1010)],

@@ -228,3 +228,94 @@ def test_repeatfiller_phases_are_user_annotations_in_the_trace(
     assert {"repeatfiller", "rf: read + harvest", "rf: seed",
             "band: DP + fetch", "rf: splice + write"} <= rec.keys()
     assert rec.keys() <= ranges
+
+
+# --- chainNet's phases and counters -------------------------------------
+
+CHAINNET = ["chainnet: parse", "chainnet: net sweep",
+            "chainnet: rescore fills", "chainnet: write"]
+
+
+@pytest.fixture(scope="module")
+def pair12(tmp_path_factory):
+    from benchmark.workloads import cleaner
+    return cleaner.generate(2 ** 32 + 5, {"n_scenarios": 12, "n_bulk": 60},
+                            str(tmp_path_factory.mktemp("pair12")))
+
+
+def _chain_net(w, min_space, **kw):
+    from genomealignmenttools_tpu_torch.engines.chain_net import chain_net
+    p = w["paths"]
+    t_out, q_out = io.StringIO(), io.StringIO()
+    chain_net(p["chain"], p["t_sizes"], p["q_sizes"], t_out, q_out,
+              min_space=min_space, rescore=True, t_2bit=p["t2bit"],
+              q_2bit=p["q2bit"], linear_gap="loose", **kw)
+    return t_out.getvalue(), q_out.getvalue()
+
+
+def _fills(w, t_net):
+    """(fill lines, partial fills) of a target net: a fill is partial
+    where it does not cover its chain's target range."""
+    span = {c["id"]: (int(c["blocks"][0, 0]), int(c["blocks"][-1, 1]))
+            for c in w["chains"]}
+    fills = [ln.split() for ln in t_net.splitlines()
+             if ln.lstrip().startswith("fill ")]
+    partial = [f for f in fills
+               if not (int(f[1]) <= span[int(f[8])][0]
+                       and int(f[1]) + int(f[2]) >= span[int(f[8])][1])]
+    return len(fills), len(partial)
+
+
+@pytest.mark.parametrize("min_space", [1, 25])
+@pytest.mark.parametrize("path", ["window", "hostnative", "per fill"])
+def test_chainnet_phases_nest_and_counters_count(pair12, min_space, path,
+                                                 monkeypatch):
+    """A chain_net -rescore call is its four phases one after another,
+    the scorer's `rescore: *` phases inside `chainnet: rescore fills`; the
+    counters give the target net's fill lines and its partial fills, each
+    scored once, on each path that scores them, with the same bytes."""
+    from genomealignmenttools_tpu_torch.engines.scoring import ChainScorer
+    monkeypatch.delenv("GAT_RESCORE", raising=False)
+    window = _chain_net(pair12, min_space, device="cpu")
+    kw = {"device": "cpu"}
+    if path == "hostnative":
+        monkeypatch.setenv("GAT_RESCORE", "hostnative")
+        kw = {}
+    elif path == "per fill":         # a scorer without score_chains
+        kw = {"scorer_factory": ChainScorer}
+    perf_reset()
+    (t_net, q_net), rec = recorded(lambda: _chain_net(pair12, min_space,
+                                                      **kw))
+    assert (t_net, q_net) == window
+    fills, partial = _fills(pair12, t_net)
+    assert partial == 2 * 12        # each broken chain's two fills
+    assert PERF["chainnet_fills"] == fills
+    assert PERF["chainnet_rescored_fills"] == partial
+    spans = [(n, a, b) for n, a, b in rec.intervals if n in CHAINNET]
+    assert [n for n, _, _ in spans] == CHAINNET
+    for (_, _, b0), (_, a1, _) in zip(spans, spans[1:]):
+        assert b0 <= a1
+    (_, lo, hi) = spans[2]
+    slack = 1e-3                # the recorder notes an end after the fact
+    inner = [(a, b) for n, a, b in rec.intervals
+             if n.startswith("rescore: ")]
+    assert (path == "window") == bool(inner)
+    assert all(lo - slack <= a and b <= hi + slack for a, b in inner)
+
+
+def test_chainnet_fill_lines_of_a_pruned_native_net():
+    """The native writer leaves out a fill below the output thresholds
+    with its subtree: the fill lines are then counted by depth."""
+    import numpy as np
+
+    from genomealignmenttools_tpu_torch.engines.chain_net import _fill_lines
+    nodes = np.array([[0, 1, 0, 90, 0, 90, 0], [1, 2, 10, 50, 10, 50, 0],
+                      [0, 3, 12, 40, 70, 98, 1], [1, 4, 20, 30, 80, 85, 1]],
+                     np.int64)
+    whole = (b"net chrT 100\n fill 0 90 chrQ + 0 90 id 1 score 9 ali 80\n"
+             b"  gap 10 40 chrQ + 10 40\n"
+             b"   fill 12 28 chrQ + 70 28 id 2 score 3 ali 18\n"
+             b"    gap 20 10 chrQ + 80 5\n")
+    assert _fill_lines(memoryview(whole), nodes, 1) == 2
+    pruned = whole[:whole.index(b"   fill")]
+    assert _fill_lines(memoryview(pruned), nodes, 1) == 1
