@@ -910,6 +910,7 @@ def chain_net(chain_file: str, t_sizes_file: str, q_sizes_file: str,
 
         def rescorer(chain: Chain, start: int, end: int) -> float:
             PERF["chainnet_rescored_fills"] += 1
+            PERF["chainnet_subsets_python"] += 1
             return scorer.global_score(chain.subset_on_t(start, end))
     else:
         rescorer = None
@@ -1027,21 +1028,11 @@ def chain_net(chain_file: str, t_sizes_file: str, q_sizes_file: str,
             # device round trip (the -rescore hook, chainNet.c:832-835, is
             # per-fill sequential in the reference)
             native_tree = isinstance(netter, NativeNetTree)
-            dev = getattr(scorer, "_dev", None)
-            host_backed = dev is not None and getattr(dev, "host_native", False)
-            lib = None
-            if native_tree and host_backed and \
-                    isinstance(netter.chains, LazyChains):
-                from ..native import get_lib
-                lib = get_lib()
-                if lib is not None and not hasattr(lib, "gat_subset_scores"):
-                    lib = None
-            if lib is not None:
-                # all-host fast path: every non-full-cover fill becomes one
-                # (chain_row, start, end) job for the fused native
-                # subset+score pass; no python Chain/subset objects at all
-                from ..ops.rescore import (lut25_of, native_subset_scores,
-                                           table_row_code_ptrs)
+            if native_tree and isinstance(netter.chains, LazyChains) and \
+                    hasattr(scorer, "score_subsets"):
+                # table path: every non-full-cover fill becomes one
+                # (chain_row, start, end) job, cut and scored by the scorer
+                # from the table's arrays; no python Chain/subset objects
                 nodes = netter.nodes_t
                 fill_idx = np.flatnonzero(nodes[:, 0] == 0)
                 cidx = nodes[fill_idx, 6]
@@ -1053,13 +1044,10 @@ def chain_net(chain_file: str, t_sizes_file: str, q_sizes_file: str,
                 jobs = np.stack([cidx[partial], s_arr[partial],
                                  e_arr[partial]], axis=1)
                 chains_fac = netter.chains  # LazyChains over (table, sel)
-                t_ptrs, q_ptrs, keepalive = table_row_code_ptrs(
-                    chains_fac.table, chains_fac.sel,
-                    scorer.t_genome, scorer.q_genome)
-                out = native_subset_scores(
-                    lib, netter._blocks, netter._block_off, t_ptrs, q_ptrs,
-                    lut25_of(scorer.scheme.lut), scorer.gap_calc, jobs)
-                del keepalive
+                out = scorer.score_subsets(chains_fac.table, chains_fac.sel,
+                                           netter._blocks, netter._block_off,
+                                           jobs)
+                PERF["chainnet_subsets_table"] += int(jobs.shape[0])
                 t_override = np.full(nodes.shape[0], np.nan)
                 exists = out[:, 3] != 0
                 t_override[fill_idx[partial][exists]] = \
@@ -1080,6 +1068,7 @@ def chain_net(chain_file: str, t_sizes_file: str, q_sizes_file: str,
                     if fill.start <= chain.t_start and fill.end >= chain.t_end:
                         continue  # full cover: chain.score is used directly
                     sub = chain.subset_on_t(fill.start, fill.end)
+                    PERF["chainnet_subsets_python"] += 1
                     if sub is None:
                         continue
                     jobs.append(sub)

@@ -16,13 +16,18 @@ rescore.py:282-555) in three of its modes, chosen by `mode` or GAT_RESCORE:
   chunk sums (torch row sums) go to the native host combine.
 - `hostnative`: no device at all (rescore.py:319-324): the threaded C++
   LUT sums straight from the host genome arrays and the native combine.
-  The block scorer says `host_native = True`, so the engines take their
-  native break loop, native prescore and fused `gat_subset_scores` paths,
-  as the reference's host run does.  It runs only when named
-  (GAT_RESCORE=hostnative or mode="hostnative"), on the host whatever the
-  device argument says; nothing chooses it and nothing falls back to it.
+  The block scorer says `host_native = True`, so chainCleaner takes its
+  native break loop and native prescore, as the reference's host run
+  does.  It runs only when named (GAT_RESCORE=hostnative or
+  mode="hostnative"), on the host whatever the device argument says;
+  nothing chooses it and nothing falls back to it.
   It shares no code with K1, K2 or the torch scorers, which makes it the
   in-process oracle of the card runs.
+
+chainNet -rescore scores its partial fills through `score_subsets` in
+every mode: host-native runs the fused `gat_subset_scores`; the device modes
+cut every fill from the chain table's arrays at once (`subset_blocks`) and
+score the clipped blocks as `score_chains` scores a new chain set.
 
 The jax-free tail of the reference's module (`_n_threads`, `lut25_of`,
 `table_row_code_ptrs`, `native_subset_scores`, `_native_combine`) is the
@@ -101,10 +106,10 @@ class TorchGenomeCache:
 class TorchChainScorer:
     """Drop-in ChainScorer whose per-base block sums run on the device.
 
-    Interface of DeviceChainScorer (rescore.py:282-555).  `_dev` is the
-    window or the pair block scorer; neither is host-native, so chainCleaner
-    and chainNet -rescore batch their sub-chains through score_chains.  In
-    mode `hostnative` `_dev` is the host-native pair scorer and no device is
+    Interface of DeviceChainScorer (rescore.py:282-555), and score_subsets.
+    `_dev` is the window or the pair block scorer; neither is host-native, so
+    chainCleaner batches its sub-chains through score_chains.  In mode
+    `hostnative` `_dev` is the host-native pair scorer and no device is
     touched or resolved."""
 
     def __init__(self, scheme, gap_calc, t_genome, q_genome,
@@ -206,55 +211,86 @@ class TorchChainScorer:
         return self._pair_chain_scorer
 
     def score_chains(self, chains: list) -> list[tuple[float, float, int]]:
-        """(global, local, aliBases) per chain, in input order.  Pair mode
-        with the device combine: one pass of chunk sums and K2 over the whole
-        set, one (n_chains, 2) fetch; when a chain's scores could leave
-        int32, the host combine below over the same chunk sums, counted in
-        PERF["combine_overflow"].  Otherwise the chunk sums of every
-        (t, q, strand) group, one fetch, native combine."""
+        """(global, local, aliBases) per chain, in input order, scored by
+        _score_groups over the (t, q, strand) groups of _grouped."""
         jobs, order = self._grouped(chains)
+        out = self._score_groups(jobs, [chains[i].n_blocks for i in order])
         results: list = [None] * len(chains)
+        for k, i in enumerate(order):
+            results[i] = (float(out[k, 0]), float(out[k, 1]), int(out[k, 2]))
+        return results
+
+    def _score_groups(self, jobs, counts) -> np.ndarray:
+        """(n, 3) int64 [global, local, ali] of the chains that `jobs` (one
+        (t_name, q_name, strand, blocks) a group) hold back to back, chain k
+        with counts[k] blocks.  Pair mode with the device combine: one pass
+        of chunk sums and K2 over the whole set, one (n_chains, 2) fetch;
+        when a chain's scores could leave int32, the host combine below over
+        the same chunk sums, counted in PERF["combine_overflow"].  Otherwise
+        the chunk sums of every group, one fetch, native combine."""
         if self._device_combine():
             try:
-                scored = self._pair_chain().score(
-                    jobs, [chains[i].n_blocks for i in order])
+                return np.array(self._pair_chain().score(jobs, counts),
+                                np.int64).reshape(-1, 3)
             except OverflowError:
                 PERF["combine_overflow"] += 1
-            else:
-                for k, i in enumerate(order):
-                    results[i] = scored[k]
-                return results
         cs, c_block, n_blocks = self._dev.chunk_scores_multi(jobs)
+        all_blocks = (np.concatenate([b for (_, _, _, b) in jobs])
+                      if jobs else np.zeros((0, 4), np.int64))
+        chain_off = np.zeros(len(counts) + 1, np.int64)
+        np.cumsum(counts, out=chain_off[1:])
         lib = get_lib()
         if lib is not None:
-            all_blocks = (np.concatenate([b for (_, _, _, b) in jobs])
-                          if jobs else np.zeros((0, 4), np.int64))
-            chain_off = np.zeros(len(order) + 1, np.int64)
-            np.cumsum([chains[i].n_blocks for i in order],
-                      out=chain_off[1:])
             with phase("rescore: native combine"):
-                out = _native_combine(lib, cs, c_block, all_blocks,
-                                      chain_off, self.gap_calc)
-            for k, i in enumerate(order):
-                results[i] = (float(out[k, 0]), float(out[k, 1]),
-                              int(out[k, 2]))
-            return results
+                return _native_combine(lib, cs, c_block, all_blocks,
+                                       chain_off, self.gap_calc)
         # no native library (GAT_NATIVE=0): numpy combine per chain
         if c_block is None:     # host-native: already per-block totals
             flat = cs
         else:
             flat = np.zeros(n_blocks, np.int64)
             np.add.at(flat, c_block, cs.astype(np.int64))
-        off = 0
-        for i in order:
-            c = chains[i]
-            bs = flat[off:off + c.n_blocks]
-            off += c.n_blocks
-            gc = gap_costs(c.blocks, self.gap_calc)
-            results[i] = (float(chain_global_score(bs, gc)),
-                          float(chain_local_score(bs, gc)),
-                          int((c.blocks[:, 1] - c.blocks[:, 0]).sum()))
-        return results
+        out = np.zeros((len(counts), 3), np.int64)
+        for k in range(len(counts)):
+            lo, hi = chain_off[k], chain_off[k + 1]
+            b = all_blocks[lo:hi]
+            bs = flat[lo:hi]
+            gc = gap_costs(b, self.gap_calc)
+            out[k] = (chain_global_score(bs, gc), chain_local_score(bs, gc),
+                      int((b[:, 1] - b[:, 0]).sum()))
+        return out
+
+    def score_subsets(self, table, sel, blocks, block_off,
+                      jobs) -> np.ndarray:
+        """(n, 4) int64 [global, local, ali, exists] of the sub-chains that
+        (row, t_lo, t_hi) jobs cut from ChainTable rows `sel` (a job's row
+        indexes sel; row k's blocks are blocks[block_off[k]:block_off[k+1]]),
+        without python Chain objects: the contract of native_subset_scores.
+        Host-native: the fused native pass.  The device modes: subset_blocks
+        cuts every job at once, and the clipped blocks are scored by
+        _score_groups, grouped by their rows' (t, q, strand), as score_chains
+        scores a chain set it has not scored before."""
+        jobs = np.ascontiguousarray(jobs, np.int64).reshape(-1, 3)
+        if self._dev.host_native:
+            t_ptrs, q_ptrs, keepalive = table_row_code_ptrs(
+                table, sel, self.t_genome, self.q_genome)
+            out = native_subset_scores(get_lib(), blocks, block_off, t_ptrs,
+                                       q_ptrs, lut25_of(self.scheme.lut),
+                                       self.gap_calc, jobs)
+            del keepalive
+            return out
+        sub, sub_off, exists = subset_blocks(blocks, block_off, jobs)
+        out = np.zeros((jobs.shape[0], 4), np.int64)
+        out[:, 3] = exists
+        kept = np.flatnonzero(exists)
+        if kept.size == 0:
+            return out
+        order, groups, _, chain_off = _group_by_pair(
+            table, np.asarray(sel)[jobs[kept, 0]], sub,
+            np.diff(sub_off)[kept])
+        self._repeat_workload = False   # cut anew: never a chain set seen
+        out[kept[order], :3] = self._score_groups(groups, np.diff(chain_off))
+        return out
 
     def score_table(self, table) -> "np.ndarray | None":
         """(n, 3) float64 (global, local, aliBases) over a whole ChainTable in
@@ -266,36 +302,17 @@ class TorchChainScorer:
         n = len(table)
         if n == 0:
             return np.zeros((0, 3))
-        (t_ids, names), (q_ids, qnames) = table.names_factorized()
-        if self._dev.host_native and hasattr(lib, "gat_subset_scores"):
+        if self._dev.host_native:
             # all-host path: gat_subset_scores with full-range windows
             # scores every chain straight from the table columns
-            return self._score_table_native(lib, table, t_ids, names,
-                                            q_ids, qnames)
-        minus = (table.strands == ord("-")).astype(np.int64)
-        key = ((t_ids.astype(np.int64) << 33)
-               | (q_ids.astype(np.int64) << 1) | minus)
-        _, inverse = np.unique(key, return_inverse=True)
-        order = np.argsort(inverse, kind="stable")  # rows grouped, stable
-        bo = table.block_offsets
-        cnt_o = (bo[1:] - bo[:-1])[order]
-        chain_off = np.zeros(n + 1, np.int64)
-        np.cumsum(cnt_o, out=chain_off[1:])
-        if np.array_equal(order, np.arange(n)):
-            all_blocks = np.ascontiguousarray(table.blocks, np.int64)
-        else:
-            pos = (np.repeat(bo[order] - chain_off[:-1], cnt_o)
-                   + np.arange(int(chain_off[-1])))
-            all_blocks = np.ascontiguousarray(table.blocks[pos], np.int64)
-        ginv = inverse[order]
-        gstart = np.flatnonzero(np.r_[True, ginv[1:] != ginv[:-1]])
-        gend = np.r_[gstart[1:], n]
-        jobs = []
-        for s, e in zip(gstart.tolist(), gend.tolist()):
-            i = int(order[s])
-            jobs.append((names[t_ids[i]], qnames[q_ids[i]],
-                         "-" if minus[i] else "+",
-                         all_blocks[chain_off[s]:chain_off[e]]))
+            sel = np.arange(n)
+            jobs = np.stack([sel, table.header[:, 1], table.header[:, 2]],
+                            axis=1)   # t_start, t_end: full cover
+            return self.score_subsets(table, sel, table.blocks,
+                                      table.block_offsets,
+                                      jobs)[:, :3].astype(np.float64)
+        order, jobs, all_blocks, chain_off = _group_by_pair(
+            table, np.arange(n), table.blocks, np.diff(table.block_offsets))
         cs, c_block, _ = self._dev.chunk_scores_multi(jobs)
         with phase("rescore: native combine"):
             out = _native_combine(lib, cs, c_block, all_blocks, chain_off,
@@ -304,20 +321,83 @@ class TorchChainScorer:
         results[order] = out
         return results
 
-    def _score_table_native(self, lib, table, t_ids, names, q_ids, qnames):
-        n = len(table)
-        sel = np.arange(n)
-        t_ptrs, q_ptrs, keepalive = table_row_code_ptrs(
-            table, sel, self.t_genome, self.q_genome)
-        jobs = np.empty((n, 3), np.int64)
-        jobs[:, 0] = sel
-        jobs[:, 1] = table.header[:, 1]  # t_start: full cover
-        jobs[:, 2] = table.header[:, 2]  # t_end
-        out = native_subset_scores(lib, table.blocks, table.block_offsets,
-                                   t_ptrs, q_ptrs, lut25_of(self.scheme.lut),
-                                   self.gap_calc, jobs)
-        del keepalive
-        return out[:, :3].astype(np.float64)
+
+def _group_by_pair(table, rows, blocks, counts):
+    """Chains regrouped by their rows' (target, query, strand), stable within
+    a group: the chains lie back to back in `blocks`, chain k with counts[k]
+    blocks, of ChainTable row rows[k].  Returns (order, jobs, all_blocks,
+    chain_off):
+    the k-th chain in group order is chain order[k], with the blocks
+    all_blocks[chain_off[k]:chain_off[k + 1]]; jobs holds the block
+    scorer's (t_name, q_name, strand, blocks) of each group."""
+    (t_ids, names), (q_ids, qnames) = table.names_factorized()
+    t_ids, q_ids = t_ids[rows], q_ids[rows]
+    minus = (table.strands[rows] == ord("-")).astype(np.int64)
+    key = ((t_ids.astype(np.int64) << 33)
+           | (q_ids.astype(np.int64) << 1) | minus)
+    _, inverse = np.unique(key, return_inverse=True)
+    order = np.argsort(inverse, kind="stable")  # rows grouped, stable
+    n = order.shape[0]
+    cnt_o = counts[order]
+    chain_off = np.zeros(n + 1, np.int64)
+    np.cumsum(cnt_o, out=chain_off[1:])
+    if np.array_equal(order, np.arange(n)):
+        all_blocks = np.ascontiguousarray(blocks, np.int64)
+    else:
+        starts = np.cumsum(counts) - counts
+        pos = (np.repeat(starts[order] - chain_off[:-1], cnt_o)
+               + np.arange(int(chain_off[-1])))
+        all_blocks = np.ascontiguousarray(blocks[pos], np.int64)
+    ginv = inverse[order]
+    gstart = np.flatnonzero(np.r_[True, ginv[1:] != ginv[:-1]])
+    gend = np.r_[gstart[1:], n]
+    jobs = []
+    for s, e in zip(gstart.tolist(), gend.tolist()):
+        i = int(order[s])
+        jobs.append((names[t_ids[i]], qnames[q_ids[i]],
+                     "-" if minus[i] else "+",
+                     all_blocks[chain_off[s]:chain_off[e]]))
+    return order, jobs, all_blocks, chain_off
+
+
+def subset_blocks(blocks, block_off, jobs):
+    """chainSubsetOnT (Chain.subset_on_t) for every (row, t_lo, t_hi) job
+    at once, row k's blocks being blocks[block_off[k]:block_off[k + 1]],
+    t-sorted.  A job keeps the blocks with tEnd > t_lo and tStart < t_hi;
+    its first block's tStart and qStart move up to t_lo, its last block's
+    tEnd and qEnd down to t_hi.  Returns (sub, sub_off, exists): job k's
+    clipped blocks are sub[sub_off[k]:sub_off[k + 1]], (m, 4) int64, and
+    exists[k] says it kept any.  Coordinates are non-negative."""
+    with phase("rescore: cut subsets"):
+        blocks = np.asarray(blocks, np.int64)
+        block_off = np.asarray(block_off, np.int64)
+        jobs = np.asarray(jobs, np.int64).reshape(-1, 3)
+        n = jobs.shape[0]
+        sub_off = np.zeros(n + 1, np.int64)
+        if n == 0 or blocks.shape[0] == 0:
+            return np.zeros((0, 4), np.int64), sub_off, np.zeros(n, bool)
+        row, lo, hi = jobs[:, 0], jobs[:, 1], jobs[:, 2]
+        # keyed by (its row, a coordinate), every block of every row is in
+        # one sorted order: one search per bound finds each job's range
+        span = int(max(blocks[:, 1].max(), lo.max(), hi.max())) + 1
+        base = np.repeat(np.arange(block_off.shape[0] - 1, dtype=np.int64)
+                         * span, np.diff(block_off))
+        first = np.searchsorted(base + blocks[:, 1], row * span + lo, "right")
+        last = np.searchsorted(base + blocks[:, 0], row * span + hi, "left")
+        cnt = np.maximum(last - first, 0)
+        exists = cnt > 0
+        np.cumsum(cnt, out=sub_off[1:])
+        pos = (np.repeat(first - sub_off[:-1], cnt)
+               + np.arange(int(sub_off[-1])))
+        sub = blocks[pos]
+        head, tail = sub_off[:-1][exists], sub_off[1:][exists] - 1
+        d = np.maximum(lo[exists] - sub[head, 0], 0)
+        sub[head, 0] += d
+        sub[head, 2] += d
+        d = np.maximum(sub[tail, 1] - hi[exists], 0)
+        sub[tail, 1] -= d
+        sub[tail, 3] -= d
+    return sub, sub_off, exists
 
 
 def torch_scorer_factory(device: str | torch.device | None = None,

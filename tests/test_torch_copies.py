@@ -95,6 +95,12 @@ DIFFERENCES = {
         "rescore fills` and `chainnet: write` open where phase_add closed "
         "the generic ones": [(890, 893), (963, 964), (998, 999),
                              (1081, 1082), (1119, 1119)],
+        "the table path: every scorer with score_subsets (every mode of "
+        "the port's) cuts and scores the partial fills from the chain "
+        "table's arrays, with the jobs that were the host-native branch's "
+        "alone": [(1007, 1021), (1033, 1039)],
+        "counter `chainnet_subsets_python`: partial fills cut by "
+        "Chain.subset_on_t": [(886, 886), (1059, 1059)],
         "counter `chainnet_fills`: the target side's fill lines": [
             (1105, 1105), (1111, 1111), (1116, 1116)],
         "chain_net_main passes the CLI's device": [(1122, 1122),

@@ -271,9 +271,10 @@ def _fills(w, t_net):
 def test_chainnet_phases_nest_and_counters_count(pair12, min_space, path,
                                                  monkeypatch):
     """A chain_net -rescore call is its four phases one after another,
-    the scorer's `rescore: *` phases inside `chainnet: rescore fills`; the
-    counters give the target net's fill lines and its partial fills, each
-    scored once, on each path that scores them, with the same bytes."""
+    the scorer's `rescore: *` phases, the cut of the subsets among them,
+    inside `chainnet: rescore fills`; the counters give the target net's
+    fill lines and its partial fills, each scored once, on each path that
+    scores them, and which path cut them, with the same bytes."""
     from genomealignmenttools_tpu_torch.engines.scoring import ChainScorer
     monkeypatch.delenv("GAT_RESCORE", raising=False)
     window = _chain_net(pair12, min_space, device="cpu")
@@ -291,6 +292,9 @@ def test_chainnet_phases_nest_and_counters_count(pair12, min_space, path,
     assert partial == 2 * 12        # each broken chain's two fills
     assert PERF["chainnet_fills"] == fills
     assert PERF["chainnet_rescored_fills"] == partial
+    per_fill = path == "per fill"   # the file's table, cut one by one
+    assert PERF["chainnet_subsets_table"] == (0 if per_fill else partial)
+    assert PERF["chainnet_subsets_python"] == (partial if per_fill else 0)
     spans = [(n, a, b) for n, a, b in rec.intervals if n in CHAINNET]
     assert [n for n, _, _ in spans] == CHAINNET
     for (_, _, b0), (_, a1, _) in zip(spans, spans[1:]):
@@ -300,6 +304,8 @@ def test_chainnet_phases_nest_and_counters_count(pair12, min_space, path,
     inner = [(a, b) for n, a, b in rec.intervals
              if n.startswith("rescore: ")]
     assert (path == "window") == bool(inner)
+    assert (path == "window") == any(n == "rescore: cut subsets"
+                                     for n, _, _ in rec.intervals)
     assert all(lo - slack <= a and b <= hi + slack for a, b in inner)
 
 
