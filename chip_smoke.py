@@ -11,8 +11,7 @@ non-zero:
 1. device   - require CUDA; print the card's name and nvidia-smi's
               name and power limit.
 2. build    - build the kernels from genomealignmenttools_tpu_torch/csrc
-              with nvcc (sm_90a, one nvcc per source, in parallel; K2's
-              first version, experiments/combine_v1.cu, beside them) and
+              with nvcc (sm_90a, one nvcc per source, in parallel) and
               print the build seconds and ptxas counts.  (The native host
               library builds from genomealignmenttools_tpu_torch/native
               with g++ at its first use, in the next phase.)
@@ -75,15 +74,14 @@ non-zero:
               byte-compared with a host-native run of the same file; cold and
               warm seconds, Mb aligned per second, K1 launches, and K1's time
               against the plain version's at the main path's shapes.
-9. resident - the same chains through TorchPairChainScorer (bench.py's
-              resident protocol; a pass is one K2 launch from the int8
-              tiles, then the finish): every chain's (global, local) equal
-              to the host-native scores, 45 K2 launches in 45 passes; pack,
-              upload, single-pass and sustained per-pass times, bytes a pass
-              moves against the card's published HBM bandwidth; K2 against
-              its plain version and its first version (the torch row sums
-              and the seven-launch kernel, the parent's pass), exact, and
-              all three timed in turns at these shapes beside K2's bound;
+9. resident - the same chains through TorchPairChainScorer (a pass is one
+              K2 launch from the int8 tiles, then the finish; the sustained
+              pass is (T(41) - T(1)) / 40): every chain's (global, local)
+              equal to the host-native scores, 45 K2 launches in 45 passes;
+              pack, upload, single-pass and sustained per-pass times, bytes a
+              pass moves against the card's published HBM bandwidth; K2
+              against its plain version, exact, and both timed in turns at
+              these shapes beside K2's bound;
               then the same chains in combined-code and 4-bit tiles
               (GAT_PAIR_TILES=code, score4): pack and upload seconds, 45
               launches of the format's entry in 45 passes, scores equal to
@@ -92,22 +90,24 @@ non-zero:
               version and K2's int8 entry on the same chunks, exact and
               timed in turns beside its bound; peak device memory.
 10. cleaner  - chainNet -rescore on the chainCleaner bench workload
-              (build_cleaner_workload, as bench.py builds it) through the
-              port in window mode and in pair mode with the device combine,
-              each byte-compared with a host-native run; wall seconds of all.
+              (build_cleaner_workload at its defaults: 2,000 scenarios and
+              30,000 bulk chains, the size of chainpair-planted-loose)
+              through the port in window mode and in pair mode with the
+              device combine, each byte-compared with a host-native run;
+              wall seconds of all.
 11. gap fixtures - RepeatFiller --refQuirks through the port's CLI on the
               card, byte-identical to tests/golden; RepeatFiller in clean
               mode and patchChain (6 arguments, with and without -unmask),
               byte-compared with the port's host band batch (GAT_BAND=host,
               in this process, no kernel); each port run must launch K3.
-12. repeatfiller - build_repeatfiller_workload(n_gaps=600), bench.py's
-              depth, through the port's RepeatFiller (must launch K3) and
-              through its host band batch (GAT_BAND=host), byte-compared,
-              wall seconds of both; then the workload's extension problems
-              (align_prepare) through K3 and through the plain version in
-              K3's sub-batches: equal, CUDA-event ms of each, problem and
-              column counts, the columns and band cells K3 really ran and
-              the bound they give, peak device memory.
+12. repeatfiller - build_repeatfiller_workload(n_gaps=600), the depth of
+              gapfill-planted-loose, through the port's RepeatFiller (must
+              launch K3) and through its host band batch (GAT_BAND=host),
+              byte-compared, wall seconds of both; then the workload's
+              extension problems (align_prepare) through K3 and through the
+              plain version in K3's sub-batches: equal, CUDA-event ms of
+              each, problem and column counts, the columns and band cells K3
+              really ran and the bound they give, peak device memory.
 13. filterChains - FilterChainsNetFilterNets through the port's CLI on the
               fixtures, byte-identical to tests/golden; must launch K1.
 14. sharded - the chr1 chains through ShardedChainScorer on [cuda:0] * k,
@@ -126,14 +126,7 @@ non-zero:
               each torch.profiler trace must name K1's kernel; summed CUDA
               kernel time, the traced window and their ratio (device-busy
               share).
-17. bench   - the port's bench (python -m genomealignmenttools_tpu_torch.
-              bench) in a subprocess at reduced sizes (chr1-lite
-              chainCleaner: 200 scenarios + 3,000 bulk chains; chr1 32 Mb
-              and 48 chains; 60 RepeatFiller gaps): rc 0, its JSON line,
-              every section done, every output byte-identical to the
-              host-native run, and K1, K2 and K3 launched in the sections
-              that run them; those launches join the kernels line.
-18. variants - every row of tests/variant_cases.py (the table of
+17. variants - every row of tests/variant_cases.py (the table of
               tests/test_torch_variants.py's CPU twins) through the port's
               CLI with -device=cuda or its engines and scorer with a
               TorchChainScorer on the card: chr1-lite chainCleaner and
@@ -167,7 +160,7 @@ non-zero:
               the format's K2 entry and no other with the device combine,
               K3 in RepeatFiller) and nothing else.  One line per row:
               variant, mode, setting, what it is held to, launches, seconds.
-19. sanitize - python -m genomealignmenttools_tpu_torch.sanitize cuda in
+18. sanitize - python -m genomealignmenttools_tpu_torch.sanitize cuda in
               this process: K1, K2's four entries and K3 in both modes at
               every instantiation on the edge cases of tests/rescore_cases.py,
               combine_cases.py and band_cases.py under memcheck, racecheck,
@@ -187,7 +180,7 @@ non-zero:
               the verdict.  One line a tool: errors, launches, seconds; any
               error, timeout or difference fails.  Its launches join the
               kernels line.
-20. dryrun  - dryrun_multidevice([cuda:0] * 4): the sharded scorers, the
+19. dryrun  - dryrun_multidevice([cuda:0] * 4): the sharded scorers, the
               sharded cleaner, chainNet -rescore and RepeatFiller on the
               fixtures, and the band DP split across devices, all exact.
 
@@ -236,8 +229,8 @@ FORMATS = ("code", "score4")
 # operations a tile byte of K2's row sources: the instructions of each one's
 # row-sum loop (16-byte loads, the decode, the shuffles, the stores of s) over
 # the tile bytes a thread reads in one trip, counted in the SASS that nvcc
-# 12.8 made for sm_90a (experiments/kernel_experiments.py k2 --out: 96, 323
-# and 349 instructions for 64 bytes)
+# 12.8 made for sm_90a (96, 323 and 349 instructions for 64 bytes, by the
+# variant script `kernel_experiments.py k2 --out` of commit a7b6c47)
 OPS_PER_BYTE = {"score8": 96 / 64, "code": 323 / 64, "score4": 349 / 64}
 
 
@@ -284,27 +277,11 @@ def phase_device():
     return name, smi
 
 
-V1_COMBINE = os.path.join(REPO, "genomealignmenttools_tpu_torch", "experiments",
-                          "combine_v1.cu")
-
-
 def phase_build():
-    """The port's kernels, and beside them (one more nvcc, started first) K2's
-    first version, the parent's yardstick; returns the latter's library."""
-    import ctypes
-
+    """Build or load the port's kernels; print the ptxas counts."""
     from genomealignmenttools_tpu_torch import _build
-    os.makedirs(os.path.join(_build.BUILD_DIR, "experiments"), exist_ok=True)
-    v1_so = os.path.join(_build.BUILD_DIR, "experiments", "combine_v1.so")
-    v1 = subprocess.Popen(
-        [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-         "-Xcompiler", "-fPIC", "-o", v1_so, V1_COMBINE],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     t0 = time.monotonic()
-    try:
-        _build.load_library()
-    finally:
-        v1_log = v1.communicate()[0]
+    _build.load_library()
     secs = time.monotonic() - t0
     built = _build.last_build_seconds
     print(f"[build] {_build.LIB_PATH}: "
@@ -314,37 +291,6 @@ def phase_build():
         for line in f:
             if "registers" in line or "spill" in line:
                 print(f"[build] ptxas: {line.strip()}")
-    check(v1.returncode == 0, f"nvcc of {V1_COMBINE} failed:\n{v1_log}")
-    print(f"[build] K2's first version (experiments/combine_v1.cu) built "
-          f"beside it, {time.monotonic() - t0:.3f} s for both")
-    return bind_v1(ctypes.CDLL(v1_so))
-
-
-def bind_v1(lib):
-    """The argument types of K2's first version's entries, on its library."""
-    import ctypes
-    p = ctypes.c_void_p
-    lib.gat_pair_combine.restype = ctypes.c_int
-    lib.gat_pair_combine.argtypes = [p, p, p, ctypes.c_int64, p, p, p, p]
-    lib.gat_pair_combine_scratch.restype = ctypes.c_int64
-    lib.gat_pair_combine_scratch.argtypes = [ctypes.c_int64]
-    return lib
-
-
-def v1_pass(lib, tiles, bias, flags):
-    """What the parent's pass ran: the torch int8 row sums, then K2's first
-    version (seven launches) from its own library; (c, w)."""
-    import torch
-    s = tiles.sum(dim=1, dtype=torch.int32)
-    m = s.numel()
-    c, w = torch.empty_like(s), torch.empty_like(s)
-    scratch = torch.empty(lib.gat_pair_combine_scratch(m), dtype=torch.int32,
-                          device=s.device)
-    err = lib.gat_pair_combine(s.data_ptr(), bias.data_ptr(), flags.data_ptr(),
-                               m, c.data_ptr(), w.data_ptr(), scratch.data_ptr(),
-                               torch.cuda.current_stream().cuda_stream)
-    check(err == 0, f"K2's first version failed to launch ({err})")
-    return c, w
 
 
 def random_case(rng, t_len: int, q_len: int, n: int):
@@ -992,11 +938,10 @@ def timed(fn):
     return time.monotonic() - t0, out
 
 
-def phase_resident(meta: dict, dev, v1_lib) -> dict:
-    """The chr1 chains through TorchPairChainScorer, following bench.py's
-    resident protocol (bench.py:500-522); returns K2's times, error and
-    launches.  v1_lib is K2's first version, timed beside the new K2 with
-    the torch row sums it needs, as the parent's pass ran them."""
+def phase_resident(meta: dict, dev) -> dict:
+    """The chr1 chains through TorchPairChainScorer: a first pass, three
+    single passes and 41 chained ones, the sustained pass (T(41) - T(1)) /
+    40; returns K2's times, error and launches."""
     import numpy as np
     import torch
 
@@ -1083,19 +1028,12 @@ def phase_resident(meta: dict, dev, v1_lib) -> dict:
     worst = max(k2_against_plain(s, bias, flags, start_idx, pmeta.end_idx,
                                  tiles=tiles, tweak=tw) for tw in (None, one))
     check(worst == 0, f"K2 != plain at resident shapes (max {worst})")
-    c_v1, w_v1 = v1_pass(v1_lib, tiles, bias, flags)
-    c, w = pc.pair_combine_scan_tiles(tiles, bias, flags)
-    d = max_diff((c, c_v1), (w, w_v1))
-    check(d == 0, f"K2 != its first version at resident shapes (max {d})")
-    del c, w, c_v1, w_v1
     ms = {}
-    # in turns: plain, v1, kernel, kernel, v1, plain
+    # in turns: plain, kernel, kernel, plain
     for label, fn, reps in (
             ("plain", pc.pair_combine_scan_tiles_plain, 3),
-            ("v1", lambda *a: v1_pass(v1_lib, *a), 20),
             ("kernel", pc._launch_tiles, 50),
             ("kernel", pc._launch_tiles, 50),
-            ("v1", lambda *a: v1_pass(v1_lib, *a), 20),
             ("plain", pc.pair_combine_scan_tiles_plain, 3)):
         ms.setdefault(label, []).append(
             cuda_ms(lambda fn=fn: fn(tiles, bias, flags), reps))
@@ -1105,11 +1043,10 @@ def phase_resident(meta: dict, dev, v1_lib) -> dict:
     n_bytes = tiles.numel() + 16 * rows
     print(f"[resident] K2 at these shapes ({rows} chunks of {tiles.shape[1]} "
           f"bytes, {-(-rows // pc.TILE)} tiles of {pc.TILE}), in turns: "
-          f"kernel (one launch from the int8 tiles) {ms['kernel']} ms; v1 "
-          f"(torch row sums + the seven-launch first version, the parent's "
-          f"pass) {ms['v1']} ms; plain {ms['plain']} ms; kernel == plain == "
-          f"v1 exactly, with and without a tweak.  Apart: the torch row sums "
-          f"alone {row_ms:.4f} ms, the kernel's int32-s entry {s_ms:.4f} ms")
+          f"kernel (one launch from the int8 tiles) {ms['kernel']} ms; "
+          f"plain {ms['plain']} ms; kernel == plain exactly, with and "
+          f"without a tweak.  Apart: the torch row sums alone {row_ms:.4f} "
+          f"ms, the kernel's int32-s entry {s_ms:.4f} ms")
     # the bound: every tile byte, bias and flags read once, c and w written
     # once; the row-sum loop's operations a byte and about six a chunk for
     # the scans
@@ -1119,10 +1056,9 @@ def phase_resident(meta: dict, dev, v1_lib) -> dict:
           f"{bound['bound_by']}: {n_bytes} bytes ({tiles.numel()} of tiles, "
           f"16 a chunk of bias, flags, c and w) at "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; the kernel reaches "
-          f"{100 * bound['bound_ms'] / min(ms['kernel']):.1f}% of it, v1 "
-          f"{100 * bound['bound_ms'] / min(ms['v1']):.1f}%; library call: none "
-          f"(three dependent segmented scans; torch.cumsum and cummax are not "
-          f"segmented)")
+          f"{100 * bound['bound_ms'] / min(ms['kernel']):.1f}% of it; "
+          f"library call: none (three dependent segmented scans; torch.cumsum "
+          f"and cummax are not segmented)")
     formats = {kind: resident_format(kind, chains, scheme, gap_calc, t_gen,
                                      q_gen, dev, host_rows, tiles)
                for kind in FORMATS}
@@ -1258,8 +1194,8 @@ def resident_format(kind: str, chains, scheme, gap_calc, t_gen, q_gen, dev,
 
 def phase_cleaner(tmp: str, n_scenarios: int = 2000,
                   n_bulk: int = 30000) -> tuple[int, dict]:
-    """chainNet -rescore on the chainCleaner bench workload (bench.py:
-    555-558) through the port in window and pair mode, byte-compared with a
+    """chainNet -rescore on the chainCleaner bench workload at its default
+    size through the port in window and pair mode, byte-compared with a
     host-native run; returns K2's launches in the pair run and the
     workload."""
     from genomealignmenttools_tpu_torch.engines.chain_net import chain_net
@@ -1442,7 +1378,8 @@ def phase_gap_fixtures(tmp: str) -> None:
 
 
 def phase_repeatfiller(tmp: str, dev, n_gaps: int = 600) -> dict:
-    """RepeatFiller at bench.py's depth; returns K3's kernels-line numbers."""
+    """RepeatFiller at the benchmark's depth (600 gaps); returns K3's
+    kernels-line numbers."""
     import torch
 
     from genomealignmenttools_tpu_torch.device.genome import open_genome
@@ -1801,85 +1738,6 @@ def phase_profile(tmp: str, meta: dict) -> int:
     return launches
 
 
-# the port's bench at reduced sizes: chr1-lite chainCleaner, 32 Mb chr1, 60
-# RepeatFiller gaps
-BENCH_ARGS = ["--cleaner-scenarios", "200", "--cleaner-bulk", "3000",
-              "--chr1-size", "32000000", "--chr1-chains", "48",
-              "--rf-gaps", "60"]
-BENCH_SECTIONS = ["workload_cleaner", "cleaner", "chainnet_rescore",
-                  "workload_chr1", "scorechain", "resident",
-                  "workload_repeatfiller", "repeatfiller", "cleaner_1thread"]
-
-
-def phase_bench(tmp: str) -> dict:
-    """`python -m genomealignmenttools_tpu_torch.bench` on the card at
-    BENCH_ARGS' sizes, in a subprocess: rc 0, one JSON line last with the
-    root bench's keys, every section done, no failure, every parity field
-    true, and launches in every card section (K1 in the window runs of
-    chainCleaner, chainNet -rescore and scoreChain, K2 in their pair runs
-    and the resident pass, K3 in RepeatFiller).  Returns the bench's
-    launches summed over its sections."""
-    env = dict(os.environ, GAT_BENCH_DIR=os.path.join(tmp, "bench"),
-               GAT_BENCH_BUDGET_S="240",
-               PYTHONPATH=os.pathsep.join(
-                   p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
-    t0 = time.monotonic()
-    p = subprocess.run(
-        [sys.executable, "-m", "genomealignmenttools_tpu_torch.bench",
-         *BENCH_ARGS], env=env, cwd=REPO, capture_output=True, text=True,
-        timeout=300)
-    secs = time.monotonic() - t0
-    lines = p.stdout.strip().splitlines()
-    check(p.returncode == 0 and bool(lines),
-          f"the bench exited {p.returncode}: {p.stderr[-3000:]}")
-    r = json.loads(lines[-1])
-    extra = r["extra"]
-    check(list(r) == ["metric", "value", "unit", "vs_baseline", "extra"],
-          f"the bench's line has keys {list(r)}")
-    check(extra["failures"] == [], f"bench failures: {extra['failures']}")
-    check(extra["sections_done"] == BENCH_SECTIONS,
-          f"bench sections done: {extra['sections_done']}")
-    for section in ("cleaner", "chainnet_rescore", "scorechain"):
-        parity = extra[section]["byte_identical"]
-        check(bool(parity) and all(parity.values()),
-              f"bench {section}: {parity}")
-    check(extra["resident"]["matches_hostnative"]
-          and extra["repeatfiller"]["device_matches_host"],
-          "bench resident or repeatfiller differs from the host-native run")
-    runs = {f"{s} {m}": extra[s][m]["launches"]
-            for s in ("cleaner", "chainnet_rescore", "scorechain")
-            for m in ("port_window", "port_pair")}
-    runs["resident"] = extra["resident"]["launches"]
-    runs["repeatfiller"] = extra["repeatfiller"]["device"]["launches"]
-    for label, key in [(f"{s} port_window", KERNEL) for s in
-                       ("cleaner", "chainnet_rescore", "scorechain")] + [
-            ("cleaner port_pair", K2), ("chainnet_rescore port_pair", K2),
-            ("resident", K2), ("repeatfiller", K3)]:
-        check(runs[label][key] > 0, f"bench {label} never launched {key}")
-    total: dict = {}
-    for counts in runs.values():
-        for k, v in counts.items():
-            total[k] = total.get(k, 0) + v
-    cl, res, rf = extra["cleaner"], extra["resident"], extra["repeatfiller"]
-    med = lambda d: d["warm_s"]["median"]  # noqa: E731
-    print(f"[bench] python -m genomealignmenttools_tpu_torch.bench "
-          f"{' '.join(BENCH_ARGS)}: rc 0, {secs:.1f} s, every section done, "
-          f"every output byte-identical to the host-native run; value "
-          f"{r['value']:.4f} s (chainCleaner, port window mode, warm median)"
-          f", vs_baseline {r['vs_baseline']}")
-    print(f"[bench] chainCleaner warm medians: window "
-          f"{med(cl['port_window']):.4f} s, pair {med(cl['port_pair']):.4f} s, host-native "
-          f"{med(cl['hostnative']):.4f} s, 1 thread "
-          f"{cl['warm_1thread_s']['median']:.4f} s; chainNet -rescore window "
-          f"{med(extra['chainnet_rescore']['port_window']):.4f} s; scoreChain "
-          f"window {med(extra['scorechain']['port_window']):.4f} s; resident "
-          f"sustained {res['sustained_pass_s']['median'] * 1e3:.4f} ms a pass;"
-          f" RepeatFiller card {rf['device']['s']:.3f} s, host "
-          f"{rf['host']['s']:.3f} s")
-    print(f"[bench] launches by run: {runs}")
-    return total
-
-
 def phase_filter_chains(tmp: str) -> int:
     """FilterChainsNetFilterNets through the port's CLI on the fixtures,
     byte-identical to tests/golden; must launch K1.  Returns the launches."""
@@ -2096,7 +1954,7 @@ def main() -> int:
     name, smi = phase_device()
     import torch
     dev = torch.device("cuda", 0)
-    v1_lib = clocked(phase_build)
+    clocked(phase_build)
     worst = clocked(phase_kernel, dev)
     worst_k2, worst_formats = clocked(phase_kernel_k2, dev)
     worst_k3, k3_plain = clocked(phase_kernel_k3, dev)
@@ -2106,7 +1964,7 @@ def main() -> int:
         format_launches = clocked(phase_fixtures, tmp)
         goldens = clocked(phase_goldens, tmp, dev)
         entry, chr1 = clocked(phase_chr1, tmp, dev)
-        resident = clocked(phase_resident, chr1, dev, v1_lib)
+        resident = clocked(phase_resident, chr1, dev)
         k2_launches, cleaner = clocked(phase_cleaner, tmp)
         clocked(phase_gap_fixtures, tmp)
         rf = clocked(phase_repeatfiller, tmp, dev)
@@ -2114,21 +1972,20 @@ def main() -> int:
         sharded = clocked(phase_sharded, chr1, resident.pop("host"), dev)
         dist_launches = clocked(phase_distributed, tmp, cleaner)
         k1_prof = clocked(phase_profile, tmp, chr1)
-        bench = clocked(phase_bench, tmp)
         variants, variants_err = clocked(phase_variants, tmp)
     sanitized = clocked(phase_sanitize, dev, k3_plain)
     dry = clocked(phase_dryrun, dev)
     entry["max_abs_err"] = max(worst, entry["max_abs_err"])
     entry["launches"] += (k1_fc + k1_prof + sharded[KERNEL]
                           + dist_launches[KERNEL] + dry[KERNEL]
-                          + goldens[KERNEL] + bench[KERNEL]
-                          + variants[KERNEL] + sanitized[KERNEL])
+                          + goldens[KERNEL] + variants[KERNEL]
+                          + sanitized[KERNEL])
     k2_entry = {"name": K2, "route": "cuda",
                 "source": "genomealignmenttools_tpu_torch/csrc/combine.cu",
                 "replaces": "genomealignmenttools_tpu/ops/pallas_combine.py:112",
                 "launches": (resident["launches"] + k2_launches + sharded[K2]
                              + dist_launches[K2] + dry[K2] + goldens[K2]
-                             + bench[K2] + variants[K2] + sanitized[K2]),
+                             + variants[K2] + sanitized[K2]),
                 "max_abs_err": max(worst_k2, resident["max_abs_err"],
                                    variants_err.get(K2, 0)),
                 **{k: resident[k] for k in ("ms", "plain_ms", "bound_ms",
@@ -2143,8 +2000,7 @@ def main() -> int:
             "replaces": "genomealignmenttools_tpu/ops/pallas_combine.py:112 "
                         "with the decode of ops/pair_rescore.py:757-759",
             "launches": (res["launches"] + format_launches[key]
-                         + goldens[key] + bench[key] + variants[key]
-                         + sanitized[key]),
+                         + goldens[key] + variants[key] + sanitized[key]),
             "max_abs_err": max(worst_formats[kind], res["max_abs_err"],
                                variants_err.get(key, 0)),
             **{k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -2153,7 +2009,7 @@ def main() -> int:
                 "source": "genomealignmenttools_tpu_torch/csrc/band.cu",
                 "replaces": "genomealignmenttools_tpu/ops/pallas_band.py:63",
                 "launches": (rf["launches"] + dry[K3] + goldens[K3]
-                             + bench[K3] + variants[K3] + sanitized[K3]),
+                             + variants[K3] + sanitized[K3]),
                 "max_abs_err": max(worst_k3, rf["max_abs_err"],
                                    variants_err.get(K3, 0)),
                 **{k: rf[k] for k in ("ms", "plain_ms", "bound_ms",

@@ -42,8 +42,6 @@ NO_CARD_PATH = {
                      "-fsanitize=thread build of tools/tsan_check.sh)",
     "GAT_PROFILE": "the directory of -profile's trace; the [profile] phase "
                    "runs the profiler on the card",
-    "GAT_BENCH_BUDGET_S": "the bench's time budget; the [bench] phase sets it",
-    "GAT_BENCH_DIR": "the bench's workload cache; the [bench] phase sets it",
 }
 
 
@@ -54,7 +52,7 @@ def names_read_from_environment() -> set:
                          r"\"(GAT_[A-Z0-9_]+)\"")
     names = set()
     for root, _, files in os.walk(PORT):
-        if "experiments" in root or "build" in root:
+        if "build" in root:
             continue
         for name in files:
             if name.endswith((".py", ".cpp", ".h", ".cu")):
