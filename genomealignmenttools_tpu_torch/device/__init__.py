@@ -24,12 +24,16 @@ import torch
 # -rescore scored exactly, on whichever path scored them;
 # chainnet_subsets_table counts the partial fills given to a scorer's
 # score_subsets (cut from the chain table's arrays), chainnet_subsets_python
-# those cut one by one by Chain.subset_on_t.
+# those cut one by one by Chain.subset_on_t; cleaner_prescore_table counts
+# the jobs of chainCleaner's prescore given to a scorer's score_subsets (cut
+# from the row chains' arrays), cleaner_prescore_python those cut one by one
+# by Chain.subset_on_t.
 PERF = {"h2d_bytes": 0, "d2h_bytes": 0, "dispatches": 0,
         "combine_overflow": 0, "band_problems": 0, "band_out_of_band": 0,
         "rf_chain_native_pairs": 0, "rf_chain_python_pairs": 0,
         "chainnet_fills": 0, "chainnet_rescored_fills": 0,
-        "chainnet_subsets_table": 0, "chainnet_subsets_python": 0}
+        "chainnet_subsets_table": 0, "chainnet_subsets_python": 0,
+        "cleaner_prescore_table": 0, "cleaner_prescore_python": 0}
 
 # Kernel launch counters, one per hand-written kernel, and for K2 one per
 # row source: `pair_combine` counts its entries from int32 sums and from int8

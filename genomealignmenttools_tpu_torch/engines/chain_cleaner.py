@@ -38,6 +38,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..device import PERF
 from ..device.genome import open_genome
 from ..formats.chain import Chain, format_score, iter_chains
 from ..formats.gapcalc import gap_calc_from_file
@@ -662,13 +663,56 @@ class ChainCleaner:
         Host path: gat_subset_scores fuses chainSubsetOnT + per-base LUT
         sums + gapCalc + the global/local scan into one threaded native
         pass straight from the genome code arrays - no python subset
-        objects.  Device scorers batch materialized subsets through one
-        device round trip instead."""
+        objects.  Device scorers cut every job from the row chains' arrays
+        at once and score them in one score_subsets call; scorers with only
+        score_chains get materialized subsets through one batch."""
         if self._prescore_native(allowed_parents):
             return
-        if not hasattr(self.scorer, "score_chains"):
+        scorer = self.scorer
+        if hasattr(scorer, "score_subsets") and not getattr(
+                getattr(scorer, "_dev", None), "host_native", False):
+            from ..ops.rescore import ChainRows
+            chains, keys, jobs, chain_off, blocks = \
+                self._prescore_jobs(allowed_parents)
+            if not keys:
+                return
+            out = scorer.score_subsets(ChainRows(chains),
+                                       np.arange(len(chains)), blocks,
+                                       chain_off, jobs)
+            PERF["cleaner_prescore_table"] += len(keys)
+            for key, row in zip(keys, out.tolist()):
+                self._sub_cache[key] = (float(row[0]), float(row[1]),
+                                        int(row[2]), bool(row[3]), self._seq)
             return
-        jobs: list[Chain] = []
+        if not hasattr(scorer, "score_chains"):
+            return
+        chains, keys, jobs, _, _ = self._prescore_jobs(allowed_parents)
+        subs: list[Chain] = []
+        sub_keys: list[tuple[int, int, int]] = []
+        for key, (row, start, end) in zip(keys, jobs.tolist()):
+            sub = chains[row].subset_on_t(start, end)
+            if sub is None:
+                self._sub_cache[key] = (0.0, 0.0, 0, False, self._seq)
+            else:
+                subs.append(sub)
+                sub_keys.append(key)
+        PERF["cleaner_prescore_python"] += len(keys)
+        if not subs:
+            return
+        scored = scorer.score_chains(subs)
+        for key, (g, loc, ali) in zip(sub_keys, scored):
+            self._sub_cache[key] = (float(g), float(loc), int(ali), True,
+                                    self._seq)
+
+    def _prescore_jobs(self, allowed_parents):
+        """The prescore's jobs: each pending break's four sub-chains in the
+        order testAndRemoveSuspect asks for them, each (chain.id, start,
+        end) once.  Returns (chains, keys, jobs, chain_off, blocks): row k is
+        chains[k], its blocks blocks[chain_off[k]:chain_off[k + 1]] (int64);
+        jobs[i] is the (row, start, end) of cache key keys[i]."""
+        rows: dict[int, int] = {}
+        chains: list[Chain] = []
+        jobs: list[tuple[int, int, int]] = []
         keys: list[tuple[int, int, int]] = []
         seen: set[tuple[int, int, int]] = set()
 
@@ -679,29 +723,29 @@ class ChainCleaner:
             if key in seen:
                 return
             seen.add(key)
-            sub = chain.subset_on_t(start, end)
-            if sub is None:
-                self._sub_cache[key] = (0.0, 0.0, 0, False, self._seq)
-                return
-            jobs.append(sub)
+            row = rows.get(chain.id)
+            if row is None:
+                row = rows[chain.id] = len(chains)
+                chains.append(chain)
+            jobs.append((row, start, end))
             keys.append(key)
 
         for key, break_list in self.break_hash.el_list_order():
             if allowed_parents is not None and key not in allowed_parents:
                 continue
             for brk in break_list:
-                breaking = self.chains.get(brk.parent_chain_id)
+                enqueue(self.chains.get(brk.parent_chain_id),
+                        brk.suspect_start, brk.suspect_end)
                 broken = self.chains.get(brk.chain_id)
-                enqueue(breaking, brk.suspect_start, brk.suspect_end)
                 enqueue(broken, brk.l_fill_start, brk.r_fill_end)
                 enqueue(broken, brk.l_fill_start, brk.suspect_end)
                 enqueue(broken, brk.suspect_start, brk.r_fill_end)
-        if not jobs:
-            return
-        scored = self.scorer.score_chains(jobs)
-        for key, sub, (g, loc, ali) in zip(keys, jobs, scored):
-            self._sub_cache[key] = (float(g), float(loc), int(ali), True,
-                                    self._seq)
+        chain_off = np.zeros(len(chains) + 1, np.int64)
+        np.cumsum([c.n_blocks for c in chains], out=chain_off[1:])
+        blocks = (np.concatenate([c.blocks for c in chains]).astype(
+            np.int64, copy=False) if chains else np.zeros((0, 4), np.int64))
+        return (chains, keys, np.array(jobs, np.int64).reshape(-1, 3),
+                chain_off, blocks)
 
     def _prescore_native(self, allowed_parents) -> bool:
         """gat_subset_scores fast path; False -> caller uses the batched
@@ -718,45 +762,11 @@ class ChainCleaner:
             return False
         import ctypes
 
-        rows: dict[int, int] = {}
-        chain_list: list[Chain] = []
-        jobs: list[tuple[int, int, int]] = []
-        keys: list[tuple[int, int, int]] = []
-        seen: set[tuple[int, int, int]] = set()
-
-        def enqueue(chain: Chain | None, start: int, end: int):
-            if chain is None:
-                return
-            key = (chain.id, start, end)
-            if key in seen:
-                return
-            seen.add(key)
-            row = rows.get(chain.id)
-            if row is None:
-                row = rows[chain.id] = len(chain_list)
-                chain_list.append(chain)
-            jobs.append((row, start, end))
-            keys.append(key)
-
-        for key, break_list in self.break_hash.el_list_order():
-            if allowed_parents is not None and key not in allowed_parents:
-                continue
-            for brk in break_list:
-                enqueue(self.chains.get(brk.parent_chain_id),
-                        brk.suspect_start, brk.suspect_end)
-                broken = self.chains.get(brk.chain_id)
-                enqueue(broken, brk.l_fill_start, brk.r_fill_end)
-                enqueue(broken, brk.l_fill_start, brk.suspect_end)
-                enqueue(broken, brk.suspect_start, brk.r_fill_end)
-        if not jobs:
+        chain_list, keys, jobs_arr, chain_off, blocks = \
+            self._prescore_jobs(allowed_parents)
+        if not keys:
             return True
         n_rows = len(chain_list)
-        chain_off = np.zeros(n_rows + 1, np.int64)
-        for i, c in enumerate(chain_list):
-            chain_off[i + 1] = chain_off[i] + c.n_blocks
-        blocks = np.empty((int(chain_off[-1]), 4), np.int64)
-        for i, c in enumerate(chain_list):
-            np.copyto(blocks[chain_off[i]:chain_off[i + 1]], c.blocks)
         code_refs = []  # keep the code arrays alive across the call
         t_ptrs = (ctypes.c_void_p * n_rows)()
         q_ptrs = (ctypes.c_void_p * n_rows)()
@@ -773,8 +783,7 @@ class ChainCleaner:
         for qv in range(min(5, lut.shape[0])):
             for tv in range(min(5, lut.shape[1])):
                 lut25[qv * 5 + tv] = lut[qv, tv]
-        jobs_arr = np.asarray(jobs, np.int64)
-        out = np.empty((len(jobs), 4), np.int64)
+        out = np.empty((len(keys), 4), np.int64)
         gc = scorer.gap_calc
         import os as _os
         i64p = ctypes.POINTER(ctypes.c_int64)
@@ -784,7 +793,7 @@ class ChainCleaner:
             blocks.ctypes.data_as(i64p), chain_off.ctypes.data_as(i64p),
             n_rows, t_ptrs, q_ptrs,
             lut25.ctypes.data_as(i32p),
-            jobs_arr.ctypes.data_as(i64p), len(jobs),
+            jobs_arr.ctypes.data_as(i64p), len(keys),
             int(gc.small_size),
             gc.q_small.ctypes.data_as(i64p),
             gc.t_small.ctypes.data_as(i64p),

@@ -295,7 +295,7 @@ class TorchPairBlockScorer:
     (pair_rescore.py:325-574).
 
     `host_native` is False, as WindowBlockScorer's, so chainCleaner and
-    chainNet -rescore batch their sub-chains through score_chains.  With
+    chainNet -rescore batch their sub-chains through score_subsets.  With
     `host_native=True` (pair_rescore.py:332-348, 478-525) nothing is
     packed, uploaded or launched: chunk_scores_multi returns per-block LUT
     sums from the threaded C++ pass over the host genome arrays (numpy

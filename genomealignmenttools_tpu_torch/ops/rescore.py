@@ -28,6 +28,9 @@ chainNet -rescore scores its partial fills through `score_subsets` in
 every mode: host-native runs the fused `gat_subset_scores`; the device modes
 cut every fill from the chain table's arrays at once (`subset_blocks`) and
 score the clipped blocks as `score_chains` scores a new chain set.
+chainCleaner's prescore under the device modes takes the same call, its
+Chain objects' blocks concatenated and `ChainRows` standing in for the
+table.
 
 The jax-free tail of the reference's module (`_n_threads`, `lut25_of`,
 `table_row_code_ptrs`, `native_subset_scores`, `_native_combine`) is the
@@ -108,7 +111,7 @@ class TorchChainScorer:
 
     Interface of DeviceChainScorer (rescore.py:282-555), and score_subsets.
     `_dev` is the window or the pair block scorer; neither is host-native, so
-    chainCleaner batches its sub-chains through score_chains.  In mode
+    chainCleaner cuts its sub-chains through score_subsets.  In mode
     `hostnative` `_dev` is the host-native pair scorer and no device is
     touched or resolved."""
 
@@ -320,6 +323,30 @@ class TorchChainScorer:
         results = np.empty((n, 3))
         results[order] = out
         return results
+
+
+class ChainRows:
+    """A list of Chain objects as the two members of a ChainTable that
+    score_subsets reads (through _group_by_pair and table_row_code_ptrs),
+    row k being chains[k]: names_factorized(), ((t_ids, t_names), (q_ids,
+    q_names)) with int32 ids into each side's list of distinct names, and
+    strands, uint8 ord('+') or ord('-') a row."""
+
+    def __init__(self, chains):
+        self._names = (_factorize([c.t_name for c in chains]),
+                       _factorize([c.q_name for c in chains]))
+        self.strands = np.array([ord(c.q_strand) for c in chains], np.uint8)
+
+    def names_factorized(self):
+        return self._names
+
+
+def _factorize(values):
+    """(int32 ids, distinct values in order of first appearance)."""
+    idx_of: dict = {}
+    ids = np.array([idx_of.setdefault(v, len(idx_of)) for v in values],
+                   np.int32)
+    return ids, list(idx_of)
 
 
 def _group_by_pair(table, rows, blocks, counts):

@@ -108,6 +108,13 @@ DIFFERENCES = {
     },
     "engines/chain_cleaner.py": {
         "import of the phase timer": [(47, 47)],
+        "import of the PERF counters": [(41, 41)],
+        "_prescore_breaks: device scorers cut every job at once through "
+        "score_subsets over ChainRows, scorers with only score_chains cut "
+        "them by subset_on_t, each path counted in PERF; both take their "
+        "jobs from _prescore_jobs, the one job collector": [(664, 703)],
+        "_prescore_native takes its rows, blocks and jobs from "
+        "_prescore_jobs": [(720, 786)],
         "phase `cleaner: prescore` opens in the python break loop": [
             (1010, 1010)],
         "phase `cleaner: net` opens around the in-memory netting": [
@@ -178,6 +185,7 @@ REINDENTED = {
     },
     "engines/chain_cleaner.py": {
         "the prescore, under `cleaner: prescore`": [(1010, 1010)],
+        "the table path's return, under its branch": [(669, 669)],
         "the in-memory netting, under `cleaner: net`": [(1542, 1542),
                                                        (1554, 1573)],
     },
