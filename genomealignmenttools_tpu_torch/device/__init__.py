@@ -27,13 +27,18 @@ import torch
 # those cut one by one by Chain.subset_on_t; cleaner_prescore_table counts
 # the jobs of chainCleaner's prescore given to a scorer's score_subsets (cut
 # from the row chains' arrays), cleaner_prescore_python those cut one by one
-# by Chain.subset_on_t.
+# by Chain.subset_on_t; pc_gaps, pc_band_problems, pc_band_runs and
+# pc_psl_records count patchChain's gap jobs aligned, the extension problems
+# they gave the band batch, the band batches run (one a chunk of gaps that
+# has a problem: one K3 launch on the card) and the psl records written.
 PERF = {"h2d_bytes": 0, "d2h_bytes": 0, "dispatches": 0,
         "combine_overflow": 0, "band_problems": 0, "band_out_of_band": 0,
         "rf_chain_native_pairs": 0, "rf_chain_python_pairs": 0,
         "chainnet_fills": 0, "chainnet_rescored_fills": 0,
         "chainnet_subsets_table": 0, "chainnet_subsets_python": 0,
-        "cleaner_prescore_table": 0, "cleaner_prescore_python": 0}
+        "cleaner_prescore_table": 0, "cleaner_prescore_python": 0,
+        "pc_gaps": 0, "pc_band_problems": 0, "pc_band_runs": 0,
+        "pc_psl_records": 0}
 
 # Kernel launch counters, one per hand-written kernel, and for K2 one per
 # row source: `pair_combine` counts its entries from int32 sums and from int8

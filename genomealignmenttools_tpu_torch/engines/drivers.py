@@ -5,9 +5,10 @@ Behavioral references:
       emits N shuffled csh cluster jobs running
       `lastz t.2bit/chr[s..e] q.2bit/chr[s..e] Q=HoxD55.q K=1500 L=2500 W=5
       --format=axt` + optional filterAxtIdentityEntropy + axtToPsl.  Here
-      the alignment runs in-process per gap (ops/seed_extend with a
-      sensitive seed length), with deterministic shard selection replacing
-      the cluster job fan-out; output is the same psl patches.
+      the alignment runs in-process over chunks of gaps (ops/seed_extend
+      with a sensitive seed length; one band batch a chunk), with
+      deterministic shard selection replacing the cluster job fan-out;
+      output is the same psl patches.
   src/filterAxtIdentityEntropy.py - exact port (prefix-sum windows, greedy
       extension, whole-entry keep).
   src/ExtractSynInvChainsFromNet.perl - collect chain ids of syn/inv fills
@@ -29,18 +30,20 @@ import sys
 
 import numpy as np
 
+from ..device import PERF
 from ..device.genome import Genome
 from ..formats.axt import Axt, read_axts, write_axts
 from ..formats.chain import read_chains, sort_chains_by_score, write_chains
 from ..formats.chromsizes import read_chrom_sizes
 from ..formats.scorematrix import read_score_scheme, score_scheme_default
 from ..ops.seed_extend import GapAligner
+from ..utils.profiling import phase
 from .chain_tools import _CharGenome, chain_filter, chain_pre_net
 from .chain_net import chain_net
 from .converters import axt_to_psl_records
 from .net_filter_nonnested import net_filter_non_nested
 from .net_tools import net_syntenic
-from .repeat_filler import harvest_gap_jobs
+from .repeat_filler import _gap_chunks, _gap_jobs_hsps, harvest_gap_jobs
 
 INT_MAX = 2 ** 31 - 1
 
@@ -178,6 +181,7 @@ def extract_syn_inv_chains(net_file: str, chain_file: str, out,
 # patchChain
 # ---------------------------------------------------------------------------
 
+@phase("patchchain")
 def patch_chain(chain_file: str, t_2bit: str, q_2bit: str,
                 t_sizes_file: str, q_sizes_file: str, out_psl,
                 chain_min_score: int = 0, chain_min_size_t: int = 0,
@@ -199,7 +203,10 @@ def patch_chain(chain_file: str, t_2bit: str, q_2bit: str,
     Replaces the reference's cluster-job fan-out: gaps are harvested with
     the same walk and bounds, round-robin sharded deterministically
     (num_shards/shard_index replace the csh jobList), aligned in-process
-    and written as psl (axtToPsl semantics).  The psl output feeds a fresh
+    a chunk of gaps at a time through RepeatFiller's stages (phases
+    `pc: seed`, `pc: hsp scan`, `pc: band problems`, `pc: gapped finish`;
+    one band batch a chunk, PERF["pc_band_runs"]) and written as psl
+    (axtToPsl semantics).  The psl output feeds a fresh
     axtChain run exactly like the reference's patch psl files.
 
     unmask=False reproduces lastz's default soft-masked seeding (seeds
@@ -209,88 +216,92 @@ def patch_chain(chain_file: str, t_2bit: str, q_2bit: str,
     """
     if (min_entropy != 0 or min_identity != 0) and window_size == 0:
         raise ValueError("minEntropy or minIdentity given but windowSize is 0")
-    with open(chain_file) as f:
-        chain_lines = [ln + "\n" for ln in f.read().split("\n")]
-    jobs = harvest_gap_jobs(
-        chain_lines, chain_min_score, chain_min_size_t, chain_min_size_q,
-        gap_min_t, gap_min_q, gap_max_t, gap_max_q)
-    jobs = [j for i, j in enumerate(jobs) if i % num_shards == shard_index]
+    with phase("pc: read + harvest"):
+        with open(chain_file) as f:
+            chain_lines = [ln + "\n" for ln in f.read().split("\n")]
+        jobs = harvest_gap_jobs(
+            chain_lines, chain_min_score, chain_min_size_t, chain_min_size_q,
+            gap_min_t, gap_min_q, gap_max_t, gap_max_q)
+        jobs = [j for i, j in enumerate(jobs)
+                if i % num_shards == shard_index]
 
-    scheme = (read_score_scheme(score_scheme) if score_scheme
-              else score_scheme_default())
-    t_genome = Genome(t_2bit)
-    q_genome = Genome(q_2bit)
-    t_chars = _CharGenome(t_2bit)
-    q_chars = _CharGenome(q_2bit)
-    # K/L per the reference's lastz defaults for patchChain
-    # (patchChain.perl:23 `K=1500 L=2500`)
-    aligner = GapAligner(scheme.lut, seed_len=seed_len,
-                         hsp_threshold=hsp_threshold,
-                         gapped_threshold=gapped_threshold,
-                         gap_open=scheme.gap_open,
-                         gap_extend=scheme.gap_extend,
-                         char_matrix=scheme.char_matrix(),
-                         device=device)
-    code_to_char = np.frombuffer(b"TCAGN", dtype=np.uint8)
+        scheme = (read_score_scheme(score_scheme) if score_scheme
+                  else score_scheme_default())
+        t_genome = Genome(t_2bit)
+        q_genome = Genome(q_2bit)
+        t_chars = _CharGenome(t_2bit)
+        q_chars = _CharGenome(q_2bit)
+        # K/L per the reference's lastz defaults for patchChain
+        # (patchChain.perl:23 `K=1500 L=2500`)
+        aligner = GapAligner(scheme.lut, seed_len=seed_len,
+                             hsp_threshold=hsp_threshold,
+                             gapped_threshold=gapped_threshold,
+                             gap_open=scheme.gap_open,
+                             gap_extend=scheme.gap_extend,
+                             char_matrix=scheme.char_matrix(),
+                             device=device)
 
-    seed_cache: dict = {}
+        seed_cache: dict = {}
 
-    def seed_codes(genome, mask_genome, name, strand):
-        """Codes with soft-masked positions forced to 4 (seed-blind)."""
-        key = (id(genome), name, strand)
-        if key not in seed_cache:
-            codes = genome.codes(name, strand).copy()
-            mask = mask_genome.seq(name).mask
-            if mask is not None and mask.any():
-                m = mask[::-1] if strand == "-" else mask
-                codes[m] = 4
-            seed_cache[key] = codes
-        return seed_cache[key]
+        def seed_codes(genome, mask_genome, name, strand):
+            """Codes with soft-masked positions forced to 4 (seed-blind)."""
+            key = (id(genome), name, strand)
+            if key not in seed_cache:
+                codes = genome.codes(name, strand).copy()
+                mask = mask_genome.seq(name).mask
+                if mask is not None and mask.any():
+                    m = mask[::-1] if strand == "-" else mask
+                    codes[m] = 4
+                seed_cache[key] = codes
+            return seed_cache[key]
 
-    t_mask_genome = None if unmask else Genome(t_2bit, with_mask=True)
-    q_mask_genome = None if unmask else Genome(q_2bit, with_mask=True)
+        t_mask_genome = None if unmask else Genome(t_2bit, with_mask=True)
+        q_mask_genome = None if unmask else Genome(q_2bit, with_mask=True)
 
-    axts = []
-    for job in jobs:
-        t_codes = t_genome.codes(job.t_name, "+")
-        q_codes = q_genome.codes(job.q_name, job.q_strand)
-        q_size = q_genome.seq(job.q_name).size
-        t_lo, t_hi = job.t_block_end - 1, job.t_gap_end
-        q_plus_lo, q_plus_hi = job.q_block_end - 1, job.q_gap_end
-        if job.q_strand == "-":
-            q_lo, q_hi = q_size - q_plus_hi, q_size - q_plus_lo
-        else:
-            q_lo, q_hi = q_plus_lo, q_plus_hi
-        t_seed = (None if unmask else
-                  seed_codes(t_genome, t_mask_genome, job.t_name, "+"))
-        q_seed = (None if unmask else
-                  seed_codes(q_genome, q_mask_genome, job.q_name,
-                             job.q_strand))
-        hsps = aligner.align(t_codes, q_codes, t_lo, t_hi, q_lo, q_hi,
-                             t_seed_codes=t_seed, q_seed_codes=q_seed)
-        tb = t_chars.chars(job.t_name, "+")
-        qb = q_chars.chars(job.q_name, job.q_strand)
-        for ts, te, qs, qe, sc in hsps:
-            axts.append(Axt(
-                q_name=job.q_name, q_start=qs, q_end=qe,
-                q_strand=job.q_strand, t_name=job.t_name,
-                t_start=ts, t_end=te, score=sc,
-                q_sym=qb[qs:qe].decode(), t_sym=tb[ts:te].decode()))
+        def job_seed_codes(job):
+            return (seed_codes(t_genome, t_mask_genome, job.t_name, "+"),
+                    seed_codes(q_genome, q_mask_genome, job.q_name,
+                               job.q_strand))
 
-    if min_entropy != 0 or min_identity != 0:
-        axts = [a for a in axts
-                if _check_axt_entry(a.t_sym, a.q_sym, min_identity,
-                                    min_entropy, window_size)]
-    psls = axt_to_psl_records(axts, read_chrom_sizes(t_sizes_file),
-                              read_chrom_sizes(q_sizes_file))
-    from ..formats.psl import write_psls
-    close = isinstance(out_psl, str)
-    f = open(out_psl, "w") if close else out_psl
-    try:
-        write_psls(psls, f)
-    finally:
-        if close:
-            f.close()
+    # every stage over a chunk of gaps, one band batch (K3) a chunk
+    # (engines/repeat_filler.py), where the reference runs lastz a gap
+    hsps_of = []
+    for batch in _gap_chunks(jobs):
+        _, hsps, n_probs = _gap_jobs_hsps(
+            batch, t_genome, q_genome, aligner, "pc",
+            None if unmask else job_seed_codes)
+        hsps_of.extend(hsps)
+        PERF["pc_gaps"] += len(batch)
+        PERF["pc_band_problems"] += n_probs
+        PERF["pc_band_runs"] += int(n_probs > 0)
+
+    with phase("pc: axt + psl"):
+        axts = []
+        for job, hsps in zip(jobs, hsps_of):
+            tb = t_chars.chars(job.t_name, "+")
+            qb = q_chars.chars(job.q_name, job.q_strand)
+            for ts, te, qs, qe, sc in hsps:
+                axts.append(Axt(
+                    q_name=job.q_name, q_start=qs, q_end=qe,
+                    q_strand=job.q_strand, t_name=job.t_name,
+                    t_start=ts, t_end=te, score=sc,
+                    q_sym=qb[qs:qe].decode(), t_sym=tb[ts:te].decode()))
+
+        if min_entropy != 0 or min_identity != 0:
+            axts = [a for a in axts
+                    if _check_axt_entry(a.t_sym, a.q_sym, min_identity,
+                                        min_entropy, window_size)]
+        psls = axt_to_psl_records(axts, read_chrom_sizes(t_sizes_file),
+                                  read_chrom_sizes(q_sizes_file))
+        PERF["pc_psl_records"] += len(psls)
+        from ..formats.psl import write_psls
+        close = isinstance(out_psl, str)
+        f = open(out_psl, "w") if close else out_psl
+        try:
+            write_psls(psls, f)
+        finally:
+            if close:
+                f.close()
 
 
 def patch_chain_make_jobs(chain_file: str, t_2bit: str, q_2bit: str,

@@ -145,12 +145,16 @@ def _gap_job_chains(job: GapJob, hsps: list, t_codes, q_codes,
     return chains
 
 
-def _gap_jobs_chains(batch, t_genome, q_genome, aligner, scheme, gap_calc,
-                     axt_chain_min_score: int) -> list[list[Chain]]:
-    """The mini-chains of each gap job of `batch`: every stage runs over
-    the whole batch before the next, one phase a stage, and the banded-DP
-    problems of all the batch's gaps go through ONE BandExtBatch.run."""
-    with phase("rf: seed"):
+def _gap_jobs_hsps(batch, t_genome, q_genome, aligner, prefix: str = "rf",
+                   seed_codes=None):
+    """(ctxs, hsps, n_problems) of the gap jobs of `batch`: each job's
+    (t_codes, q_codes, t_size, q_size) and HSP rows, and the banded-DP
+    problems run.  Every stage runs over the whole batch before the next,
+    one phase `<prefix>: <stage>` a stage, and the problems of all the
+    batch's gaps go through ONE BandExtBatch.run.  seed_codes(job), when
+    given, returns the job's (t, q) seed codes (soft-masked bases at 4,
+    seed-blind; GapAligner.align_seed)."""
+    with phase(f"{prefix}: seed"):
         ctxs = []          # (t_codes, q_codes, t_size, q_size)
         seeded = []        # align_seed's regions and windows, or None
         for job in batch:
@@ -158,24 +162,35 @@ def _gap_jobs_chains(batch, t_genome, q_genome, aligner, scheme, gap_calc,
              t_lo, t_hi, q_lo, q_hi) = _gap_job_regions(
                 job, t_genome, q_genome)
             ctxs.append((t_codes, q_codes, t_size, q_size))
+            t_seed, q_seed = ((None, None) if seed_codes is None
+                              else seed_codes(job))
             seeded.append(aligner.align_seed(t_codes, q_codes,
-                                             t_lo, t_hi, q_lo, q_hi))
-    with phase("rf: hsp scan"):
+                                             t_lo, t_hi, q_lo, q_hi,
+                                             t_seed, q_seed))
+    with phase(f"{prefix}: hsp scan"):
         blocks = [None if s is None else aligner.align_scan(s)
                   for s in seeded]
-    with phase("rf: band problems"):
+    with phase(f"{prefix}: band problems"):
         prepared = [([], None, []) if s is None
                     else aligner.align_probs(s, b)
                     for s, b in zip(seeded, blocks)]
         probs_all = [p for _, _, probs in prepared for p in probs]
     exts_all = aligner._band_batch().run(probs_all) if probs_all else []
-    with phase("rf: gapped finish"):
+    with phase(f"{prefix}: gapped finish"):
         hsps_all = []
         p0 = 0
         for done, state, probs in prepared:
             hsps_all.append(done if state is None else aligner.align_finish(
                 state, exts_all[p0:p0 + len(probs)]))
             p0 += len(probs)
+    return ctxs, hsps_all, len(probs_all)
+
+
+def _gap_jobs_chains(batch, t_genome, q_genome, aligner, scheme, gap_calc,
+                     axt_chain_min_score: int) -> list[list[Chain]]:
+    """The mini-chains of each gap job of `batch`: its HSPs through
+    _gap_jobs_hsps, then the batch chained in one phase."""
+    ctxs, hsps_all, _ = _gap_jobs_hsps(batch, t_genome, q_genome, aligner)
     with phase("rf: chain"):
         chains = chain_gap_hsps(batch, hsps_all, ctxs, scheme, gap_calc,
                                 axt_chain_min_score)
@@ -230,6 +245,14 @@ def splice_lines(job: GapJob, mini: Chain, ref_quirks: bool = False) -> str:
     return "".join(ln + "\n" for ln in lines)
 
 
+def _gap_chunks(jobs: list, chunk: int = 4096) -> list:
+    """The jobs in chunks of `chunk` gaps, one band batch a chunk;
+    GAT_RF_BATCH=0 gives chunks of one gap, the sequential per-gap path."""
+    if os.environ.get("GAT_RF_BATCH", "1") == "0":
+        chunk = 1
+    return [jobs[lo:lo + chunk] for lo in range(0, len(jobs), chunk)]
+
+
 def _run_gap_jobs(jobs, t_genome, q_genome, aligner, scheme, gap_calc,
                   axt_chain_min_score: int = 1000, chunk: int = 4096):
     """Yield (job, mini_chains) for every gap job.
@@ -242,10 +265,7 @@ def _run_gap_jobs(jobs, t_genome, q_genome, aligner, scheme, gap_calc,
     numpy loop either way (bit-identical results, the problems are
     self-contained byte strings).  GAT_RF_BATCH=0 forces the sequential
     per-gap path: a chunk of one gap."""
-    if os.environ.get("GAT_RF_BATCH", "1") == "0":
-        chunk = 1
-    for lo in range(0, len(jobs), chunk):
-        batch = jobs[lo:lo + chunk]
+    for batch in _gap_chunks(jobs, chunk):
         yield from zip(batch, _gap_jobs_chains(
             batch, t_genome, q_genome, aligner, scheme, gap_calc,
             axt_chain_min_score))

@@ -84,6 +84,30 @@ def _max_segments(scores: np.ndarray, min_score: int):
 
 
 _CODE2CHAR = np.frombuffer(b"TCAGN", dtype=np.uint8)
+_KEY = np.int64(1) << 32
+
+
+def _holding_a_seed(blocks: list, seeds, t_lo: int, q_lo: int) -> list:
+    """The HSP rows [tS, tE, qS, qE, score] that hold a whole seed word
+    on their diagonal; seeds is _seed_windows' (diag, t, k) in region
+    coordinates, sorted by diagonal then t.
+
+    lastz x-drop-extends an HSP from a seed, so every HSP it finds holds
+    one.  A scan window reaches hsp_margin bases past its seeds, so a
+    K-scoring segment that lies wholly in soft-masked sequence, seeded
+    from nowhere, can be found in it; masked seeding (patchChain without
+    -unmask) keeps none of those.  Without seed codes every segment of
+    the windows is kept, as in RepeatFiller."""
+    d_s, t_s, k = seeds
+    if not blocks or d_s.size == 0:
+        return []
+    rows = np.asarray(blocks, np.int64)
+    t0, t1 = rows[:, 0] - t_lo, rows[:, 1] - t_lo
+    diag = t0 - (rows[:, 2] - q_lo)
+    i = np.searchsorted(d_s * _KEY + t_s, diag * _KEY + t0)
+    j = np.minimum(i, d_s.size - 1)
+    hold = (i < d_s.size) & (d_s[j] == diag) & (t_s[j] + k <= t1)
+    return [b for b, h in zip(blocks, hold) if h]
 
 
 class GapAligner:
@@ -323,14 +347,21 @@ class GapAligner:
         into one window extended by hsp_margin on both sides (lastz's
         ungapped stage x-drop-extends each seed, so a K-scoring segment
         farther than the x-drop horizon from every seed word is
-        invisible to lastz at the same W too; hsp_margin=1000 is ~the
-        default lastz x-drop of 10*maxMatchScore).  Returns
+        invisible to lastz at the same W too; hsp_margin=1000 bases is
+        wider than lastz's x-drop, 10*maxMatchScore in score units, a few
+        tens of bases of chance sequence, so a window also holds segments
+        that no seed's x-drop extension reaches: masked seeding drops
+        those, _holding_a_seed).  Returns
         (diag, w0, w1) int64 arrays, windows clipped to the diagonal's
         overlap with both regions.
 
         When the word yields more than max_seeds matches the word length
         is raised by 2 (up to 3 times) - graceful specificity fallback
-        instead of the round-1 give-up-on-the-region cliff."""
+        instead of the round-1 give-up-on-the-region cliff.
+
+        The windows come with the seeds, as (windows, (diag, t, k)): the
+        seed words sorted by diagonal then target position, and the word
+        length used (_holding_a_seed)."""
         k = self.seed_len
         for attempt in range(4):
             got = self._seed_pairs(t_region, q_region, k)
@@ -338,10 +369,12 @@ class GapAligner:
                 break
             k += 2
         else:
-            return (np.zeros(0, np.int64),) * 3
+            none = np.zeros(0, np.int64)
+            return (none,) * 3, (none, none, k)
         t_pos, q_pos = got
         if t_pos.size == 0:
-            return (np.zeros(0, np.int64),) * 3
+            none = np.zeros(0, np.int64)
+            return (none,) * 3, (none, none, k)
         diags = t_pos - q_pos
         o = np.lexsort((t_pos, diags))
         d_s, t_s = diags[o], t_pos[o]
@@ -361,7 +394,7 @@ class GapAligner:
         w0 = np.maximum(w0, t0d)
         w1 = np.minimum(w1, t1d)
         keep = w1 - w0 >= k
-        return diag_w[keep], w0[keep], w1[keep]
+        return (diag_w[keep], w0[keep], w1[keep]), (d_s, t_s, k)
 
     # windows whose cells exceed this are Kadane-prefiltered in batches
     # before the exact (recursive) segment extraction runs
@@ -482,7 +515,7 @@ class GapAligner:
             return []
         blocks = self.align_scan(seeded)
         if self.gapped_threshold is not None:
-            t_region, q_region, t_lo, q_lo, _ = seeded
+            t_region, q_region, t_lo, q_lo = seeded[:4]
             return self._gapped(blocks, t_region, q_region, t_lo, q_lo)
         blocks.sort(key=lambda b: (b[2], b[0]))
         return blocks
@@ -514,7 +547,8 @@ class GapAligner:
                    t_seed_codes: np.ndarray | None = None,
                    q_seed_codes: np.ndarray | None = None):
         """The regions and their seed windows, or None when a region is
-        larger than max_region."""
+        larger than max_region.  With seed codes (masked seeding) the seed
+        words are kept too, for align_scan's _holding_a_seed."""
         if t_hi - t_lo > self.max_region or q_hi - q_lo > self.max_region:
             return None
         t_region = t_codes[t_lo:t_hi]
@@ -523,18 +557,24 @@ class GapAligner:
                   else t_seed_codes[t_lo:t_hi])
         q_seed = (q_region if q_seed_codes is None
                   else q_seed_codes[q_lo:q_hi])
-        return (t_region, q_region, t_lo, q_lo,
-                self._seed_windows(t_seed, q_seed))
+        windows, seeds = self._seed_windows(t_seed, q_seed)
+        masked = t_seed_codes is not None or q_seed_codes is not None
+        return (t_region, q_region, t_lo, q_lo, windows,
+                seeds if masked else None)
 
     def align_scan(self, seeded) -> list:
-        """The HSP rows of align_seed's windows."""
-        t_region, q_region, t_lo, q_lo, (diag_w, w0, w1) = seeded
-        return self._scan_windows(t_region, q_region, diag_w, w0, w1,
-                                  t_lo, q_lo)
+        """The HSP rows of align_seed's windows; under masked seeding only
+        those that hold a seed word (_holding_a_seed)."""
+        t_region, q_region, t_lo, q_lo, (diag_w, w0, w1), seeds = seeded
+        blocks = self._scan_windows(t_region, q_region, diag_w, w0, w1,
+                                    t_lo, q_lo)
+        if seeds is None:
+            return blocks
+        return _holding_a_seed(blocks, seeds, t_lo, q_lo)
 
     def align_probs(self, seeded, blocks: list):
         """align_prepare's (done, state, probs) from the HSP rows."""
-        t_region, q_region, t_lo, q_lo, _ = seeded
+        t_region, q_region, t_lo, q_lo = seeded[:4]
         if self.gapped_threshold is None:
             blocks.sort(key=lambda b: (b[2], b[0]))
             return blocks, None, []

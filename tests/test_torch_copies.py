@@ -77,6 +77,12 @@ DIFFERENCES = {
         "align composes align_seed and align_scan": [(473, 485)],
         "align_prepare composes align_seed, align_scan and align_probs":
             [(503, 527)],
+        "_holding_a_seed: under masked seeding align_scan keeps only the "
+        "HSPs that hold a seed word": [(87, 87)],
+        "_seed_windows returns its seed words beside its windows": [
+            (327, 327), (335, 335), (338, 338), (358, 358)],
+        "_seed_windows' docstring: hsp_margin is wider than lastz's "
+        "x-drop": [(320, 321)],
     },
     "engines/score_chain.py": {
         "device argument": [(32, 36)],
@@ -134,11 +140,15 @@ DIFFERENCES = {
         "import of the native chaining batch, ops/chain_pairs.py": [
             (34, 34)],
         "run_gap_job goes (GAT_RF_BATCH=0 runs chunks of one gap) for "
-        "_gap_jobs_chains, which runs each stage over a batch, one phase a "
-        "stage, and chains the batch in one native call, the per-gap "
-        "python path (_gap_job_chains) its fallback": [(145, 155)],
-        "GAT_RF_BATCH=0 runs chunks of one gap": [(211, 216)],
-        "_run_gap_jobs: a chunk through _gap_jobs_chains": [(219, 240)],
+        "_gap_jobs_hsps, which runs each stage over a batch, one phase "
+        "`<prefix>: <stage>` a stage, with the seed codes a caller gives "
+        "(patchChain's masked seeds), and _gap_jobs_chains, which chains "
+        "the batch in one native call, the per-gap python path "
+        "(_gap_job_chains) its fallback": [(145, 155)],
+        "_gap_chunks: chunks of 4,096 gaps, of one under GAT_RF_BATCH=0, "
+        "for RepeatFiller and patchChain": [(200, 200)],
+        "_run_gap_jobs: each chunk of _gap_chunks through _gap_jobs_chains":
+            [(211, 240)],
         "root phase `repeatfiller`": [(243, 243)],
         "device argument": [(253, 255)],
         "phase `rf: read + harvest` opens": [(261, 261)],
@@ -150,8 +160,24 @@ DIFFERENCES = {
                                                         (403, 403)],
     },
     "engines/drivers.py": {
-        "patch_chain: device argument, to the gap aligner": [(193, 195),
-                                                             (229, 229)],
+        "header note: patchChain aligns over chunks of gaps": [(8, 10)],
+        "import of the PERF counters": [(32, 32)],
+        "import of the phase timer": [(38, 38)],
+        "import of RepeatFiller's gap stages": [(43, 43)],
+        "root phase `patchchain`": [(181, 181)],
+        "patch_chain's docstring names its chunks, phases and counter": [
+            (199, 199)],
+        "patch_chain: device argument, to the gap aligner; the unused "
+        "code_to_char gone": [(193, 195), (229, 230)],
+        "phase `pc: read + harvest` opens": [(209, 209)],
+        "the shard filter on two lines, under its phase": [(214, 214)],
+        "job_seed_codes (a job's masked seed codes from the seed_codes "
+        "cache), and every chunk of gaps through RepeatFiller's stages "
+        "(_gap_jobs_hsps, phases `pc: *`, one band batch a chunk), counted "
+        "in PERF, where the reference aligns a gap at a time; then phase "
+        "`pc: axt + psl` opens over the axt records in job order": [
+            (249, 266)],
+        "counter `pc_psl_records`": [(282, 282)],
         "job scripts run the port's CLI": [(323, 323)],
         "filter_chains_net_filter_nets: device, to chain_net": [
             (356, 358), (377, 377), (399, 399), (423, 423), (456, 456)],
@@ -188,6 +214,12 @@ REINDENTED = {
         "the table path's return, under its branch": [(669, 669)],
         "the in-memory netting, under `cleaner: net`": [(1542, 1542),
                                                        (1554, 1573)],
+    },
+    "engines/drivers.py": {
+        "the read, the harvest, the aligner and the seed codes, under "
+        "`pc: read + harvest`": [(209, 247)],
+        "the axt records, the filter and the psl write, under "
+        "`pc: axt + psl`": [(249, 289)],
     },
     "engines/repeat_filler.py": {
         "the read, the filters, the harvest and the aligner, under "
