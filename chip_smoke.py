@@ -43,6 +43,15 @@ non-zero:
               BandExtBatch on the card against numpy band_ext on a subset,
               errors included; then both modes at a max_insert of every
               cells-per-lane count (1 to 8: every instantiation of K3).
+5b. kernel K4 - K4 against its plain version on the card, exactly, on the
+              edge cases of tests/hsp_cases.py (windows of 1 to 5,000 cells,
+              N runs, every segment below 0, a best of exactly K), then on
+              one chunk of each gap-filling cell (patchchain.gaps' 1,000
+              masked-seed gaps, repeatfiller.gaps' 600, from the benchmark's
+              generators): CUDA-event ms of K4 beside its bound and the
+              plain version's ms, one launch; then the chunk's HSP rows
+              through align_scan_batch (one K4 launch) equal to the host
+              scan's, gap by gap and in order, and both paths' seconds.
 6. fixtures - scoreChain, chainNet -rescore and chainCleaner through the
               port's CLI on the card, byte-compared with tests/golden; each
               must launch K1.  Then the same in pair mode (GAT_RESCORE=pair
@@ -213,6 +222,7 @@ GOLD = os.path.join(REPO, "tests", "golden")
 KERNEL = "rescore_chunks"
 K2 = "pair_combine"
 K3 = "band_ext"
+K4 = "hsp_best"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published HBM3 bandwidth
 # 32-bit integer operations outside the tensor cores: 132 SMs x 64 lanes at
 # the clock behind the published 67 TFLOP/s of float32 (128 lanes, 2 a FMA)
@@ -223,6 +233,12 @@ INT32_OPS_PER_S = 67e12 / 4
 # j*E offsets: 7), the three parent bits (5), the column best (2), the
 # matrix index (1)
 K3_OPS_PER_CELL = 25
+# the integer operations K4 needs for one cell of a scan window: the LUT
+# index, the running sum, the least prefix, the candidate, the best and the
+# best prefix (csrc/hspscan.cu)
+K4_OPS_PER_CELL = 6
+# the gap-filling cells' chunks that [kernel K4] runs: cell -> gaps a chunk
+K4_CELLS = {"patchchain.gaps": 1000, "repeatfiller.gaps": 600}
 # K2's row sources past the int8 one: GAT_PAIR_TILES value -> the kind of
 # ops/pair_combine.py, whose LAUNCHES key is pair_combine.LAUNCH_KEY[kind]
 FORMATS = ("code", "score4")
@@ -1325,6 +1341,106 @@ def phase_kernel_k3(dev) -> tuple[int, dict]:
     return worst, plain
 
 
+def phase_kernel_k4(tmp: str, dev) -> dict:
+    """K4 against its plain version on the card, exact, on the edge cases
+    of tests/hsp_cases.py and on one chunk of each gap-filling cell (its
+    benchmark generator and configuration, seed 2500000001): CUDA-event ms
+    of K4, the plain version's ms, the bound, the launches; then the
+    chunk's HSP rows through align_scan_batch (one K4 launch) against the
+    host scan's, gap by gap.  Returns the kernels-line numbers of
+    patchchain.gaps' chunk."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import hsp_cases as hc
+    from genomealignmenttools_tpu_torch.device import (LAUNCHES, PERF,
+                                                       perf_reset)
+    from genomealignmenttools_tpu_torch.ops import hsp_scan as hs
+    from genomealignmenttools_tpu_torch.ops.seed_extend import pack_windows
+
+    def on_card(t, q, t_start, q_start, length):
+        return [torch.from_numpy(a).to(dev)
+                for a in (t, q, t_start, q_start, length)]
+
+    lut = torch.from_numpy(hc.hsp_lut().astype(np.int32))
+    t, q, ts, qs, ln = args = on_card(*hc.edge_case())
+    got = hs.hsp_best(t, q, lut, ts, qs, ln)
+    want = hs.hsp_best_plain(t, q, lut, ts, qs, ln)
+    torch.cuda.synchronize()
+    worst = int((got.long() - want.long()).abs().max())
+    check(worst == 0, f"K4 != plain on the edge cases (max {worst})")
+    print(f"[kernel K4] edge cases: {ln.numel()} windows of "
+          f"{sorted(set(hc.LENGTHS))} cells and N, mismatch and exactly-K "
+          f"windows ({int((want < 0).sum())} below 0, "
+          f"{int((want == hc.K).sum())} at K): kernel == plain exactly")
+    entry = None
+    for cell, n_gaps in K4_CELLS.items():
+        t0 = time.monotonic()
+        aligner, seeded = hc.cell_chunk(cell, os.path.join(tmp, "k4", cell),
+                                        2500000001, n_gaps, dev)
+        live = [s for s in seeded if s is not None]
+        t_buf, q_buf, t_start, q_start, length = pack_windows(live)[:5]
+        lut = torch.from_numpy(aligner.hsp_lut.astype(np.int32))
+        t, q, ts, qs, ln = on_card(t_buf, q_buf, t_start, q_start, length)
+        set_up = time.monotonic() - t0
+        perf_reset()
+        got = hs.hsp_best(t, q, lut, ts, qs, ln)
+        launches = LAUNCHES[K4]
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        want = hs.hsp_best_plain(t, q, lut, ts, qs, ln)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        worst = int((got.long() - want.long()).abs().max())
+        check(worst == 0 and launches == 1,
+              f"K4 != plain at {cell}'s chunk (max {worst}; {launches} "
+              f"launches)")
+        ms = cuda_ms(lambda: hs._launch_kernel(t, q, lut, ts, qs, ln), 10)
+        cells = int(length.astype(np.int64).sum())
+        n_bytes = t_buf.size + q_buf.size + 24 * length.size
+        bound = roofline(n_bytes, K4_OPS_PER_CELL * cells)
+        reach = int((want >= aligner.hsp_threshold).sum())
+        print(f"[kernel K4] {cell}: {len(seeded)} gaps (built and seeded in "
+              f"{set_up:.1f} s), {length.size} windows, {cells} cells, "
+              f"{t_buf.size} + {q_buf.size} region bytes; {reach} windows "
+              f"reach K={aligner.hsp_threshold}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, kernel == plain exactly, {launches} "
+              f"launch")
+        print(f"[kernel K4] {cell}: bound {bound['bound_ms']:.4f} ms by "
+              f"{bound['bound_by']} ({K4_OPS_PER_CELL} integer operations a "
+              f"cell at {INT32_OPS_PER_S / 1e12:.2f} T/s; {n_bytes} bytes "
+              f"would take {1e3 * n_bytes / HBM_BYTES_PER_S:.4f} ms); the "
+              f"kernel reaches {100 * bound['bound_ms'] / ms:.1f}% of it; "
+              f"library call: none (a segmented max-subarray reduction)")
+        t0 = time.monotonic()
+        host = [None if s is None else aligner.align_scan(s)
+                for s in seeded]
+        host_s = time.monotonic() - t0
+        perf_reset()
+        t0 = time.monotonic()
+        rows = aligner.align_scan_batch(seeded)
+        batch_s = time.monotonic() - t0
+        check(rows == host and LAUNCHES[K4] == 1,
+              f"{cell}: the chunk's HSP rows differ from the host scan's "
+              f"({LAUNCHES[K4]} K4 launches)")
+        print(f"[kernel K4] {cell}: align_scan_batch (one K4 launch, "
+              f"{PERF['hsp_windows_device']} windows, "
+              f"{PERF['hsp_windows_exact']} split on the host) "
+              f"{batch_s:.3f} s, the host scan gap by gap {host_s:.3f} s; "
+              f"{sum(len(r) for r in host if r)} HSP rows, every gap's "
+              f"equal to the host scan's in order")
+        if entry is None:
+            entry = {"launches": launches + 1, "max_abs_err": worst,
+                     "ms": ms, "plain_ms": plain_ms, **bound,
+                     "library_ms": None}
+        else:
+            entry["launches"] += launches + 1
+    return entry
+
+
 HOST_ENV = {"GAT_RESCORE": "hostnative", "GAT_BAND": "host"}
 
 
@@ -1363,7 +1479,8 @@ def phase_gap_fixtures(tmp: str) -> None:
         t0 = time.monotonic()
         counts = run_cli(argv + [o(name)] + extra)
         secs = time.monotonic() - t0
-        check(counts[K3] > 0, f"{label} never launched {K3}")
+        check(counts[K3] > 0 and counts[K4] > 0,
+              f"{label} never launched {K3} or {K4}")
         if label == "RepeatFiller --refQuirks":
             want = os.path.join(GOLD, "repeatfiller_reference_output.chain")
         else:
@@ -1374,7 +1491,8 @@ def phase_gap_fixtures(tmp: str) -> None:
               f"{os.path.basename(want)}"
               + ("" if want.startswith(GOLD) else " (the port's host band "
                  "batch, GAT_BAND=host, in process)")
-              + f"; {K3} launches {counts[K3]}; {secs:.3f} s")
+              + f"; {K3} launches {counts[K3]}, {K4} {counts[K4]}; "
+              f"{secs:.3f} s")
 
 
 def phase_repeatfiller(tmp: str, dev, n_gaps: int = 600) -> dict:
@@ -1409,13 +1527,16 @@ def phase_repeatfiller(tmp: str, dev, n_gaps: int = 600) -> dict:
     port_s = time.monotonic() - t0
     phases = phase_acc_stop()
     check(counts[K3] > 0, f"{n_gaps}-gap RepeatFiller never launched {K3}")
+    check(counts[K4] == 1, f"{n_gaps}-gap RepeatFiller launched {K4} "
+                           f"{counts[K4]} times, not once (one chunk)")
     peak_cli = torch.cuda.max_memory_allocated()
     host_s = host_cli(args + [host_out])
     check(same_bytes(port_out, host_out),
           f"{n_gaps}-gap RepeatFiller differs from the host-native run")
     band_s = sum(v for k, v in phases.items() if k.startswith("band: "))
     print(f"[repeatfiller] port RepeatFiller {port_s:.3f} s ({K3} launches "
-          f"{counts[K3]}, peak device memory {peak_cli / 2**30:.3f} GiB); "
+          f"{counts[K3]}, {K4} {counts[K4]}, peak device memory "
+          f"{peak_cli / 2**30:.3f} GiB); "
           f"band stage {band_s:.4f} s: "
           + ", ".join(f"{k} {v:.4f} s" for k, v in phases.items())
           + f"; the rest (seeds, HSP scan, chaining, splice) "
@@ -1495,9 +1616,9 @@ def phase_repeatfiller(tmp: str, dev, n_gaps: int = 600) -> dict:
           f"{1e3 * n_bytes / HBM_BYTES_PER_S:.4f} ms); the kernel reaches "
           f"{100 * bound['bound_ms'] / ms['kernel']:.1f}% of it; library "
           f"call: none (a wandering-band DP with traceback)")
-    return {"launches": counts[K3], "max_abs_err": worst,
-            "ms": ms["kernel"], "plain_ms": ms["plain"], **bound,
-            "library_ms": None}
+    return {"launches": counts[K3], "k4_launches": counts[K4],
+            "max_abs_err": worst, "ms": ms["kernel"],
+            "plain_ms": ms["plain"], **bound, "library_ms": None}
 
 
 def phase_sharded(meta: dict, host: list, dev) -> dict:
@@ -1961,6 +2082,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # the phases of earlier slices first, so that their numbers are
         # taken as before: no profiler started, no other process on the card
+        k4 = clocked(phase_kernel_k4, tmp, dev)
         format_launches = clocked(phase_fixtures, tmp)
         goldens = clocked(phase_goldens, tmp, dev)
         entry, chr1 = clocked(phase_chr1, tmp, dev)
@@ -2014,6 +2136,14 @@ def main() -> int:
                                    variants_err.get(K3, 0)),
                 **{k: rf[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}}
+    k4_entry = {"name": K4, "route": "cuda",
+                "source": "genomealignmenttools_tpu_torch/csrc/hspscan.cu",
+                "replaces": "none: the host scan's filter pass "
+                            "(genomealignmenttools_tpu/ops/seed_extend.py "
+                            "_scan_windows)",
+                "launches": (k4.pop("launches") + rf["k4_launches"]
+                             + dry[K4] + sanitized[K4]),
+                **k4}
     foreign = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "genomealignmenttools_tpu"
@@ -2023,7 +2153,7 @@ def main() -> int:
     print(f"[time] whole run: {time.monotonic() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [entry, k2_entry, *format_entries,
-                                  k3_entry]}))
+                                  k3_entry, k4_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

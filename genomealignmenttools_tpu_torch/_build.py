@@ -2,7 +2,7 @@
 
 Same pattern as genomealignmenttools_tpu/native/__init__.py:31-58 (g++ at
 first use, loaded with ctypes), with nvcc for Hopper: each `csrc/*.cu`
-(K1 in rescore.cu, K2 in combine.cu, K3 in band.cu) compiles to an object,
+(K1 in rescore.cu, K2 in combine.cu, K3 in band.cu, K4 in hspscan.cu) compiles to an object,
 one nvcc per source, all started together,
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
@@ -200,6 +200,15 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int,           # gap extend, max insert
         p, p,                                 # parents (packed), centres
         p, p,                                 # meta (int32), moves (uint8)
+        p,                                    # cudaStream_t
+    ]
+    lib.gat_hsp_best.restype = ctypes.c_int
+    lib.gat_hsp_best.argtypes = [
+        p, p,                                 # t codes, q codes (uint8, device)
+        ctypes.POINTER(ctypes.c_int32),       # 5x5 LUT (host)
+        p, p, p,                              # t_start, q_start (int64), len (int32)
+        ctypes.c_int64,                       # number of windows
+        p,                                    # out (int32, device)
         p,                                    # cudaStream_t
     ]
     lib.gat_band_parent_row_bytes.restype = ctypes.c_int

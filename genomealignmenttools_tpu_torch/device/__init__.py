@@ -30,7 +30,12 @@ import torch
 # by Chain.subset_on_t; pc_gaps, pc_band_problems, pc_band_runs and
 # pc_psl_records count patchChain's gap jobs aligned, the extension problems
 # they gave the band batch, the band batches run (one a chunk of gaps that
-# has a problem: one K3 launch on the card) and the psl records written.
+# has a problem: one K3 launch on the card) and the psl records written;
+# hsp_windows_device counts the gap aligner's scan windows scored by the
+# chunk-wide scan (K4 on the card, its plain version on the CPU),
+# hsp_windows_host those scanned by the host scan, and hsp_windows_exact the
+# windows of the chunk-wide scan that reached K and were split into
+# segments on the host.
 PERF = {"h2d_bytes": 0, "d2h_bytes": 0, "dispatches": 0,
         "combine_overflow": 0, "band_problems": 0, "band_out_of_band": 0,
         "rf_chain_native_pairs": 0, "rf_chain_python_pairs": 0,
@@ -38,7 +43,8 @@ PERF = {"h2d_bytes": 0, "d2h_bytes": 0, "dispatches": 0,
         "chainnet_subsets_table": 0, "chainnet_subsets_python": 0,
         "cleaner_prescore_table": 0, "cleaner_prescore_python": 0,
         "pc_gaps": 0, "pc_band_problems": 0, "pc_band_runs": 0,
-        "pc_psl_records": 0}
+        "pc_psl_records": 0, "hsp_windows_device": 0,
+        "hsp_windows_host": 0, "hsp_windows_exact": 0}
 
 # Kernel launch counters, one per hand-written kernel, and for K2 one per
 # row source: `pair_combine` counts its entries from int32 sums and from int8
@@ -46,7 +52,7 @@ PERF = {"h2d_bytes": 0, "d2h_bytes": 0, "dispatches": 0,
 # combined-code and 4-bit tiles.  A wrapper adds one where it launches its
 # kernel and nowhere else.
 LAUNCHES = {"rescore_chunks": 0, "pair_combine": 0, "pair_combine_code": 0,
-            "pair_combine_score4": 0, "band_ext": 0}
+            "pair_combine_score4": 0, "band_ext": 0, "hsp_best": 0}
 
 
 def perf_reset() -> None:

@@ -151,9 +151,10 @@ def _gap_jobs_hsps(batch, t_genome, q_genome, aligner, prefix: str = "rf",
     (t_codes, q_codes, t_size, q_size) and HSP rows, and the banded-DP
     problems run.  Every stage runs over the whole batch before the next,
     one phase `<prefix>: <stage>` a stage, and the problems of all the
-    batch's gaps go through ONE BandExtBatch.run.  seed_codes(job), when
-    given, returns the job's (t, q) seed codes (soft-masked bases at 4,
-    seed-blind; GapAligner.align_seed)."""
+    batch's gaps go through ONE BandExtBatch.run (and, on the card, their
+    scan windows through one K4 launch: GapAligner.align_scan_batch).
+    seed_codes(job), when given, returns the job's (t, q) seed codes
+    (soft-masked bases at 4, seed-blind; GapAligner.align_seed)."""
     with phase(f"{prefix}: seed"):
         ctxs = []          # (t_codes, q_codes, t_size, q_size)
         seeded = []        # align_seed's regions and windows, or None
@@ -168,8 +169,7 @@ def _gap_jobs_hsps(batch, t_genome, q_genome, aligner, prefix: str = "rf",
                                              t_lo, t_hi, q_lo, q_hi,
                                              t_seed, q_seed))
     with phase(f"{prefix}: hsp scan"):
-        blocks = [None if s is None else aligner.align_scan(s)
-                  for s in seeded]
+        blocks = aligner.align_scan_batch(seeded)
     with phase(f"{prefix}: band problems"):
         prepared = [([], None, []) if s is None
                     else aligner.align_probs(s, b)

@@ -15,7 +15,9 @@ size) - not a lastz port.  Design:
   decomposition) - equivalent to greedy x-drop extension of every seed
   on the diagonal at once, and fully vectorized: a grouped single-pass
   Kadane over all windows prefilters, the exact recursive extraction
-  runs only on windows reaching K
+  runs only on windows reaching K; on the card the prefilter runs for a
+  whole chunk of gaps in one K4 launch (ops/hsp_scan.py,
+  GapAligner.align_scan_batch)
 - gap-free HSPs >= K are indel-joined by the gapped stage (banded
   affine DP, threshold L), then feed the kd-tree chainer
   (engines/kd_chainer) which plays lastz's chaining stage
@@ -23,7 +25,13 @@ size) - not a lastz port.  Design:
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+import torch
+
+from ..device import PERF
+from ..utils.profiling import phase
 
 
 def kmer_codes(codes: np.ndarray, k: int) -> np.ndarray:
@@ -108,6 +116,39 @@ def _holding_a_seed(blocks: list, seeds, t_lo: int, q_lo: int) -> list:
     j = np.minimum(i, d_s.size - 1)
     hold = (i < d_s.size) & (d_s[j] == diag) & (t_s[j] + k <= t1)
     return [b for b, h in zip(blocks, hold) if h]
+
+
+def pack_windows(live: list):
+    """The scan windows of align_seed's results `live` over their regions
+    concatenated: (t_buf, q_buf, t_start, q_start, length, gid, t_off,
+    q_off): uint8 codes of every target and every query region, each
+    window's int64 starts in them and int32 length, in the regions' order
+    and each region's window order; the region of each window, and each
+    region's first position in t_buf and q_buf (int64)."""
+    t_len = np.array([s[0].shape[0] for s in live], np.int64)
+    q_len = np.array([s[1].shape[0] for s in live], np.int64)
+    t_off = np.cumsum(t_len) - t_len
+    q_off = np.cumsum(q_len) - q_len
+    counts = np.array([s[4][0].size for s in live], np.int64)
+    gid = np.repeat(np.arange(len(live)), counts)
+    diag, w0, w1 = (np.concatenate([s[4][k] for s in live]).astype(np.int64)
+                    for k in range(3))
+    t_start = w0 + t_off[gid]
+    q_start = w0 - diag + q_off[gid]
+    length = (w1 - w0).astype(np.int32)
+    t_buf = np.concatenate([s[0] for s in live]).astype(np.uint8)
+    q_buf = np.concatenate([s[1] for s in live]).astype(np.uint8)
+    return t_buf, q_buf, t_start, q_start, length, gid, t_off, q_off
+
+
+def _native_scan():
+    """The native library where its threaded HSP scan is built and
+    GAT_HSP_NATIVE=0 does not turn it off, else None."""
+    if os.environ.get("GAT_HSP_NATIVE", "1") == "0":
+        return None
+    from ..native import get_lib
+    lib = get_lib()
+    return lib if lib is not None and hasattr(lib, "gat_hsp_scan") else None
 
 
 class GapAligner:
@@ -410,6 +451,7 @@ class GapAligner:
         whose best reaches the K threshold."""
         lut = self.hsp_lut
         blocks = []
+        PERF["hsp_windows_host"] += diag_w.size
         lens = (w1 - w0).astype(np.int64)
         order = np.argsort(lens, kind="stable")  # batch similar lengths
         native = self._scan_windows_native(t_region, q_region, diag_w, w0,
@@ -458,27 +500,24 @@ class GapAligner:
         """Threaded C++ scan (native/hspscan.cpp), byte-identical to the
         numpy path incl. block emission order (windows processed in the
         caller's stable length-sorted order); None when unavailable."""
-        import os as _os
+        rows = self._native_rows(t_region, q_region, diag_w[order],
+                                 w0[order], w1[order], t_lo, q_lo)
+        return None if rows is None else rows.tolist()
 
-        if _os.environ.get("GAT_HSP_NATIVE", "1") == "0":
+    def _native_rows(self, t_region, q_region, diag_w, w0, w1,
+                     t_lo: int, q_lo: int) -> np.ndarray | None:
+        """gat_hsp_scan's (n, 5) int64 rows over the windows in the given
+        order; None when the native scan is unavailable."""
+        lib = _native_scan()
+        if lib is None:
             return None
-        from ..native import get_lib
-        lib = get_lib()
-        if lib is None or not hasattr(lib, "gat_hsp_scan"):
-            return None
-        if order.size == 0:
-            return []
-        lut = self.hsp_lut
-        lut25 = np.zeros(25, np.int32)
-        for qv in range(5):
-            for tv in range(5):
-                lut25[qv * 5 + tv] = lut[qv, tv]
         import ctypes
+        lut25 = np.ascontiguousarray(self.hsp_lut.reshape(25), np.int32)
         tr = np.ascontiguousarray(t_region, np.uint8)
         qr = np.ascontiguousarray(q_region, np.uint8)
-        dw = np.ascontiguousarray(diag_w[order], np.int64)
-        a0 = np.ascontiguousarray(w0[order], np.int64)
-        a1 = np.ascontiguousarray(w1[order], np.int64)
+        dw = np.ascontiguousarray(diag_w, np.int64)
+        a0 = np.ascontiguousarray(w0, np.int64)
+        a1 = np.ascontiguousarray(w1, np.int64)
         u8p = ctypes.POINTER(ctypes.c_uint8)
         i64p = ctypes.POINTER(ctypes.c_int64)
         res_p = lib.gat_hsp_scan(
@@ -491,12 +530,12 @@ class GapAligner:
         try:
             n = int(res_p.contents.n)
             if n == 0:
-                return []
+                return np.zeros((0, 5), np.int64)
             rows = np.ctypeslib.as_array(res_p.contents.rows,
                                          shape=(n, 5)).copy()
         finally:
             lib.gat_hsp_free(res_p)
-        return rows.tolist()
+        return rows
 
     def align(self, t_codes: np.ndarray, q_codes: np.ndarray,
               t_lo: int, t_hi: int, q_lo: int, q_hi: int,
@@ -513,7 +552,7 @@ class GapAligner:
                                  t_seed_codes, q_seed_codes)
         if seeded is None:
             return []
-        blocks = self.align_scan(seeded)
+        blocks = self.align_scan_batch([seeded])[0]
         if self.gapped_threshold is not None:
             t_region, q_region, t_lo, q_lo = seeded[:4]
             return self._gapped(blocks, t_region, q_region, t_lo, q_lo)
@@ -538,7 +577,7 @@ class GapAligner:
                                  t_seed_codes, q_seed_codes)
         if seeded is None:
             return [], None, []
-        return self.align_probs(seeded, self.align_scan(seeded))
+        return self.align_probs(seeded, self.align_scan_batch([seeded])[0])
 
     # align_prepare's three stages, for callers that run each stage over
     # many regions before the next (engines/repeat_filler.py)
@@ -571,6 +610,92 @@ class GapAligner:
         if seeds is None:
             return blocks
         return _holding_a_seed(blocks, seeds, t_lo, q_lo)
+
+    def align_scan_batch(self, seeded_list: list) -> list:
+        """align_scan over many of align_seed's results: each one's HSP
+        rows (None for None), the same rows in the same order.
+
+        On the aligner's band device every window of every region is
+        scored at once: the regions and windows are concatenated, one
+        hsp_best call (one K4 launch on the card, the plain version on the
+        CPU) gives each window's best segment score, and the exact split
+        into maximal segments runs on the host only over the windows whose
+        best reaches K, in each region's stable length-sorted window order,
+        as the host scan emits them.  A window under K emits nothing on
+        either path.  Without a band device (GAT_BAND=host) each region
+        runs the threaded host scan."""
+        if self.device is None:
+            return [None if s is None else self.align_scan(s)
+                    for s in seeded_list]
+        live = [s for s in seeded_list if s is not None]
+        rows = iter(self._scan_batch_rows(live) if live else [])
+        out = []
+        for s in seeded_list:
+            if s is None:
+                out.append(None)
+                continue
+            blocks = next(rows)
+            out.append(blocks if s[5] is None
+                       else _holding_a_seed(blocks, s[5], s[2], s[3]))
+        return out
+
+    def _scan_batch_rows(self, live: list) -> list:
+        """The HSP rows of each of align_seed's results in `live`, every
+        segment of its windows (align_scan_batch)."""
+        with phase("hsp: to device"):
+            packed = pack_windows(live)
+            t_buf, q_buf, t_start, q_start, length, gid, t_off, q_off = packed
+            best = self._window_bests(t_buf, q_buf, t_start, q_start, length)
+        PERF["hsp_windows_device"] += best.size
+        with phase("hsp: exact segments"):
+            hit = np.flatnonzero(best >= self.hsp_threshold)
+            PERF["hsp_windows_exact"] += hit.size
+            # each region's windows in stable length order, as _scan_windows
+            hit = hit[np.lexsort((length[hit], gid[hit]))]
+            found = self._exact_rows(t_buf, q_buf, t_start[hit],
+                                     q_start[hit], length[hit])
+            # back to each region's coordinates, then one list a region
+            g = np.searchsorted(t_off, found[:, 0], side="right") - 1
+            found[:, :2] += (np.array([s[2] for s in live]) - t_off)[g, None]
+            found[:, 2:4] += (np.array([s[3] for s in live]) - q_off)[g, None]
+            cuts = np.searchsorted(g, np.arange(1, len(live)))
+            return [part.tolist() for part in np.split(found, cuts)]
+
+    def _window_bests(self, t_buf, q_buf, t_start, q_start, length):
+        """hsp_best over the concatenated windows on the band device (K4 on
+        the card, fed from pinned staging; the plain version on the CPU),
+        as int32 on the host."""
+        from .hsp_scan import hsp_best
+        lut = torch.from_numpy(self.hsp_lut.astype(np.int32))
+        dev = self.device
+        if dev.type == "cuda":
+            def up(a):
+                return torch.from_numpy(a).pin_memory().to(dev,
+                                                           non_blocking=True)
+        else:
+            up = torch.from_numpy
+        best = hsp_best(up(t_buf), up(q_buf), lut, up(t_start), up(q_start),
+                        up(length))
+        return best.cpu().numpy()
+
+    def _exact_rows(self, t_buf, q_buf, t_start, q_start, length):
+        """(n, 5) int64 rows [tS, tE, qS, qE, score] of every maximal
+        segment of at least K of the given windows, window by window in
+        the given order, in the buffers' coordinates: the native scan where
+        built, else _max_segments."""
+        t_end = t_start + length
+        rows = self._native_rows(t_buf, q_buf, t_start - q_start, t_start,
+                                 t_end, 0, 0)
+        if rows is not None:
+            return rows
+        found = []
+        for ts, qs, n in zip(t_start.tolist(), q_start.tolist(),
+                             length.tolist()):
+            scores = self.hsp_lut[q_buf[qs:qs + n], t_buf[ts:ts + n]]
+            found += [[ts + a, ts + e, qs + a, qs + e, sc]
+                      for a, e, sc in _max_segments(scores,
+                                                    self.hsp_threshold)]
+        return np.array(found, np.int64).reshape(-1, 5)
 
     def align_probs(self, seeded, blocks: list):
         """align_prepare's (done, state, probs) from the HSP rows."""

@@ -1,4 +1,4 @@
-"""Sanitizer runs of the port: its three CUDA kernels under four checking
+"""Sanitizer runs of the port: its four CUDA kernels under four checking
 tools on a card, and its native host library under ThreadSanitizer.  The
 port's counterpart of tools/tsan_check.sh.
 
@@ -16,7 +16,7 @@ synccheck, initcheck), all started together, each with
 PYTORCH_NO_CUDA_MEMORY_CACHING=1 so that every tensor is an allocation of
 its own size.  Each child loads a copy of the kernels built with -lineinfo
 (_build.py: build/lineinfo/, or build/checked/ for the builtin checker) and
-launches every entry point of K1, K2 and K3 on the edge cases of the GPU
+launches every entry point of K1, K2, K3 and K4 on the edge cases of the GPU
 tests' tables (kernel_cases below), and writes a digest of each launch's
 outputs; the parent holds every digest to that of the plain PyTorch version
 on the same inputs, which it computes meanwhile with two helper processes
@@ -34,7 +34,7 @@ does, there being no golden for them.
 
   --checker compute-sanitizer (the default): each child runs under
       compute-sanitizer --tool T --error-exitcode 9 --kernel-name kns=K ...
-  for the port's three __global__ functions K (KERNELS), so that torch's
+  for the port's four __global__ functions K (KERNELS), so that torch's
   own kernels are out of scope; its ERROR SUMMARY (RACECHECK SUMMARY for
   racecheck) gives the errors.
   --checker builtin: each child loads build/checked/ (-DGAT_CHECKED) and
@@ -93,10 +93,13 @@ TOOL_BITS = {"memcheck": 1, "racecheck": 2, "synccheck": 4, "initcheck": 8}
 CHECKERS = ("compute-sanitizer", "builtin")
 VARIANT = {"compute-sanitizer": "lineinfo", "builtin": "checked"}
 # the port's __global__ functions (csrc/*.cu), every instantiation
-KERNELS = ("rescore_chunks_kernel", "combine_kernel", "band_ext_kernel")
-# the LAUNCHES key of every entry point of the three kernels
+KERNELS = ("rescore_chunks_kernel", "combine_kernel", "band_ext_kernel",
+           "hsp_best_kernel")
+# the LAUNCHES key of every entry point of the four kernels
 LAUNCH_KEYS = ("rescore_chunks", "pair_combine", "pair_combine_code",
-               "pair_combine_score4", "band_ext")
+               "pair_combine_score4", "band_ext", "hsp_best")
+# the keys that --large does not launch
+NOT_LARGE = ("band_ext", "hsp_best")
 ERROR_EXIT = 9
 TIMEOUT_S = 600
 PLAIN_SHARDS = 3      # the parent and two helpers share the plain run
@@ -413,6 +416,24 @@ def _k3_cases(dev):
                    cost=columns * (1 + len(probs) * (2 * mi + 1) / 20_000))
 
 
+def _k4_cases(dev):
+    import numpy as np
+    import torch
+
+    from .ops import hsp_scan as hs
+    hc = _tests_module("hsp_cases")
+    lut = torch.from_numpy(hc.hsp_lut().astype(np.int32))
+
+    def run(kernel, args):
+        fn = hs.hsp_best if kernel else hs.hsp_best_plain
+        return [fn(args[0], args[1], lut, *args[2:])]
+
+    def build():
+        return [torch.from_numpy(a).to(dev) for a in hc.edge_case()]
+    yield Case("K4 edge windows (1 to 5,000 cells, N, below 0, at K)",
+               "hsp_best", build, run, twice=True, cost=4)
+
+
 # chr1 (hg38) and the chunks of the chr1 bench workload's 384 chains
 CHR1_BASES, CHR1_CHUNKS = 248_956_422, 3_068_461
 
@@ -500,8 +521,8 @@ def _large_cases(dev):
 
 
 def kernel_cases(dev, large: bool = False, inputs: str | None = None):
-    """Every case of the three kernels: K1, K3 in both modes at every
-    instantiation, then K2's four entries (whose rows come from the run's
+    """Every case of the four kernels: K1, K3 in both modes at every
+    instantiation, K4, then K2's four entries (whose rows come from the run's
     directory `inputs` where given, see k2_rows); with `large`, only the
     cases of _large_cases."""
     if large:
@@ -509,6 +530,7 @@ def kernel_cases(dev, large: bool = False, inputs: str | None = None):
         return
     yield from _k1_cases(dev)
     yield from _k3_cases(dev)
+    yield from _k4_cases(dev)
     yield from _k2_cases(dev, inputs)
 
 
@@ -784,7 +806,7 @@ def judge(tool: str, checker: str, rc: int | None, text: str,
                    f"{len(plain)}")
     bad += [f"{tool}: {label} differs from its plain version"
             for label in plain if label in got and got[label] != plain[label]]
-    keys = [k for k in LAUNCH_KEYS if not (large and k == "band_ext")]
+    keys = [k for k in LAUNCH_KEYS if not (large and k in NOT_LARGE)]
     missing = [k for k in keys if not payload["launches"][k]]
     if missing:
         bad.append(f"{tool}: never launched {missing}")

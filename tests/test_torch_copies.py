@@ -83,6 +83,20 @@ DIFFERENCES = {
             (327, 327), (335, 335), (338, 338), (358, 358)],
         "_seed_windows' docstring: hsp_margin is wider than lastz's "
         "x-drop": [(320, 321)],
+        "docstring: the prefilter of a chunk of gaps in one K4 launch": [
+            (18, 18)],
+        "imports of os, torch, the PERF counters and the phase timer": [
+            (26, 27)],
+        "pack_windows and _native_scan, the chunk-wide scan's packing and "
+        "the native scan's lookup": [(87, 87)],
+        "counter `hsp_windows_host`: the windows of the host scan": [
+            (374, 374)],
+        "_scan_windows_native calls _native_rows, which the chunk-wide "
+        "scan shares": [(422, 460)],
+        "align and align_prepare scan through align_scan_batch": [
+            (473, 485), (503, 527)],
+        "align_scan_batch, _scan_batch_rows, _window_bests and _exact_rows: "
+        "the chunk-wide scan (K4 on the card)": [(514, 514)],
     },
     "engines/score_chain.py": {
         "device argument": [(32, 36)],

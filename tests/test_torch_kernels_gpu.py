@@ -17,6 +17,7 @@ import torch
 from band_cases import (N_INSTANTIATION_CASES, N_KERNEL_CASES,
                         instantiation_cases, kernel_cases, outcome,
                         raw_inputs)
+import hsp_cases
 from combine_cases import (WIDE_LUT, code_tiles, code_tiles_torch,
                            combine_case, edge_chains, even_tiles_torch,
                            nibble_tiles, random_chains, score_tiles,
@@ -28,6 +29,7 @@ from genomealignmenttools_tpu_torch.formats.gapcalc import gap_calc_from_file
 from genomealignmenttools_tpu_torch.formats.scorematrix import \
     score_scheme_default
 from genomealignmenttools_tpu_torch.ops import band_batch as bb
+from genomealignmenttools_tpu_torch.ops import hsp_scan as hs
 from genomealignmenttools_tpu_torch.ops.band_ext import band_ext
 from genomealignmenttools_tpu_torch.ops import pair_combine as pc
 from genomealignmenttools_tpu_torch.ops import window_rescore as wr
@@ -506,6 +508,51 @@ def test_band_ext_batch_cuda_matches_band_ext(cuda_device, global_mode):
         for p, w in zip(probs, want):
             if not isinstance(w, tuple):
                 assert outcome(lambda p=p: batch.run([p])) is w
+
+
+@pytest.mark.gpu
+def test_hsp_best_kernel_matches_plain(cuda_device):
+    """K4 == hsp_best_plain on the card, exactly, on the edge cases of
+    tests/hsp_cases.py, and both equal a numpy Kadane; one launch."""
+    t, q, t_start, q_start, length = hsp_cases.edge_case()
+    lut = torch.from_numpy(hsp_cases.hsp_lut().astype(np.int32))
+    card = [torch.from_numpy(a).to(cuda_device)
+            for a in (t, q, t_start, q_start, length)]
+    before = LAUNCHES["hsp_best"]
+    got = hs.hsp_best(card[0], card[1], lut, *card[2:])
+    torch.cuda.synchronize()
+    assert LAUNCHES["hsp_best"] == before + 1
+    assert got.dtype == torch.int32 and got.device == cuda_device
+    assert torch.equal(got, hs.hsp_best_plain(card[0], card[1], lut,
+                                              *card[2:]))
+    assert np.array_equal(got.cpu().numpy(), hsp_cases.kadane(
+        t, q, t_start, q_start, length, hsp_cases.hsp_lut()))
+
+
+@pytest.mark.gpu
+def test_hsp_best_refuses_windows_outside_on_cuda(cuda_device):
+    t, q, t_start, q_start, length = (
+        torch.from_numpy(a).to(cuda_device) for a in hsp_cases.edge_case())
+    lut = torch.from_numpy(hsp_cases.hsp_lut().astype(np.int32))
+    with pytest.raises(IndexError):
+        hs.hsp_best(t, q, lut, t_start + t.numel(), q_start, length)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell,n_gaps", [("patchchain.gaps", 1000),
+                                         ("repeatfiller.gaps", 600)])
+def test_align_scan_batch_cuda_matches_host_scan(cuda_device, tmp_path, cell,
+                                                 n_gaps):
+    """At a gap-filling cell's chunk (its generator and configuration, its
+    gaps a call), the chunk-wide scan's HSP rows, one K4 launch, equal the
+    host scan's gap by gap and in order."""
+    aligner, seeded = hsp_cases.cell_chunk(cell, str(tmp_path), 2500000011,
+                                           n_gaps, cuda_device)
+    want = [None if s is None else aligner.align_scan(s) for s in seeded]
+    before = LAUNCHES["hsp_best"]
+    assert aligner.align_scan_batch(seeded) == want
+    assert LAUNCHES["hsp_best"] == before + 1
+    assert sum(len(w) for w in want if w) > n_gaps
 
 
 def _fixture_genomes():

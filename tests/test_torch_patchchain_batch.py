@@ -198,11 +198,14 @@ def test_unmask_finds_the_masked_pieces(planted):
 
 def test_one_chunk_is_one_band_run(planted):
     """At the default chunk (4,096 gaps) the planted gaps are one chunk and
-    one band batch: one pass of the band wrapper, which on the card is one
-    K3 launch (here the plain version, LAUNCHES untouched)."""
+    one band batch: one pass of the band wrapper and one of the HSP scan's,
+    which on the card are one K3 and one K4 launch (here the plain
+    versions, LAUNCHES untouched)."""
     _, perf, launches, _ = _port(planted, _settings("planted", False))
     assert perf["pc_gaps"] == N_GAPS and perf["pc_band_runs"] == 1
-    assert perf["dispatches"] == 1 and launches["band_ext"] == 0
+    assert perf["dispatches"] == 2
+    assert launches["band_ext"] == launches["hsp_best"] == 0
+    assert perf["hsp_windows_device"] > 0 == perf["hsp_windows_host"]
 
 
 def test_repeat_filler_phase_names_are_unchanged(tmp_path):

@@ -78,7 +78,8 @@ def test_case_table_covers_every_entry(cases):
     for c in cases:
         by.setdefault(c.label.split()[0], []).append(c)
     assert {k: len(v) for k, v in by.items()} == {
-        "K1": 2 + len(TAIL_LENGTHS), "K2": 4 * (1 + 5 * 3 * 2), "K3": 30}
+        "K1": 2 + len(TAIL_LENGTHS), "K2": 4 * (1 + 5 * 3 * 2), "K3": 30,
+        "K4": 1}
     assert {c.key for c in cases} == set(sz.LAUNCH_KEYS)
     assert all(c.twice for c in by["K2"])
     k2 = " ".join(c.label for c in by["K2"])
@@ -216,7 +217,8 @@ def test_summary_parser_fails_without_a_summary():
 
 def _payload(plain, **kw):
     p = {"launches": dict.fromkeys(sz.LAUNCH_KEYS, 3), "digests": dict(plain),
-         "cli": {"scoreChain (window)": "ok"}, "checked_launches": 15,
+         "cli": {"scoreChain (window)": "ok"},
+         "checked_launches": 3 * len(sz.LAUNCH_KEYS),
          "unstable": [], "error": None, "foreign": []}
     p.update(kw)
     return p
@@ -239,7 +241,7 @@ def test_judge_fails_on_each_fault():
         "a kernel never launched": (
             "racecheck", 0, clean, _payload(plain, launches={
                 **dict.fromkeys(sz.LAUNCH_KEYS, 3), "band_ext": 0},
-                checked_launches=12)),
+                checked_launches=3 * len(sz.LAUNCH_KEYS) - 3)),
         "unchecked launches": ("racecheck", 0, clean,
                                _payload(plain, checked_launches=14)),
         "a CLI difference": ("memcheck", 0, clean, _payload(
